@@ -1,0 +1,106 @@
+"""The port stands alone: no module of `text_to_video_finetuning_tpu_torch`
+imports JAX, flax or the JAX package, and its entry points default to the
+card.
+
+* In a fresh interpreter, every module of the port is imported; afterwards
+  no `text_to_video_finetuning_tpu` module (without `_torch`), `jax` or
+  `flax` is in `sys.modules`.  The same holds for `chip_smoke.py`.
+* The port's own copies of the JAX package's numpy-only modules agree with
+  them: the flax <-> torch name map and the minimal tokenizer writer
+  (byte-identical files).
+* `load_unet`, `load_vae` and `load_text_encoder` default to "cuda"; the
+  CPU tests pass device="cpu".
+"""
+
+import filecmp
+import inspect
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+import text_to_video_finetuning_tpu_torch as pkg
+names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(
+    pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+{extra}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax")
+             or m.split(".")[0] == "text_to_video_finetuning_tpu")
+print(len(names), "modules;", "foreign:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def _run(extra: str = "") -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", _CHECK.format(extra=extra)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    proc = _run()
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "foreign: []" in proc.stdout
+    count = int(proc.stdout.split()[0])
+    assert count >= 30, proc.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    extra = ("import runpy; runpy.run_path('chip_smoke.py', "
+             "run_name='chip_smoke')")
+    proc = _run(extra)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_torch_names_copy_agrees_with_the_jax_package():
+    from text_to_video_finetuning_tpu.utils import torch_names as ref
+    from text_to_video_finetuning_tpu_torch.utils import torch_names as ours
+
+    paths = [("down_blocks_0", "temp_convs_1", "conv3"),
+             ("up_blocks_2", "attentions_0", "transformer_blocks_0", "ff",
+              "net_0", "proj"),
+             ("mid_block", "attentions_0", "transformer_blocks_0", "attn1",
+              "to_out_0"),
+             ("transformer_in", "proj_in"), ("conv_in",)]
+    for path in paths:
+        assert ours.flax_to_torch_key(path, "unet") == \
+            ref.flax_to_torch_key(path, "unet")
+        key = ours.flax_to_torch_key(path, "unet") + ".weight"
+        assert ours.torch_key_to_flax(key, "unet") == \
+            ref.torch_key_to_flax(key, "unet")
+
+
+def test_minimal_tokenizer_writer_matches_the_jax_package(tmp_path):
+    from text_to_video_finetuning_tpu.utils.simple_tokenizer import (
+        write_minimal_clip_tokenizer as ref)
+    from text_to_video_finetuning_tpu_torch.utils.tokenizer import (
+        CLIPTokenizer, write_minimal_clip_tokenizer as ours)
+
+    for floor in (300, 512):
+        a, b = tmp_path / f"ref{floor}", tmp_path / f"ours{floor}"
+        assert ours(str(b), vocab_size_floor=floor) == \
+            ref(str(a), vocab_size_floor=floor)
+        files = sorted(os.listdir(a))
+        assert files == sorted(os.listdir(b))
+        match, mismatch, errors = filecmp.cmpfiles(a, b, files, shallow=False)
+        assert not mismatch and not errors
+    tok = CLIPTokenizer.from_pretrained(str(b))
+    assert tok("a cat").input_ids[0] == tok.bos_token_id
+
+
+@pytest.mark.parametrize("loader", ["load_unet", "load_vae",
+                                    "load_text_encoder"])
+def test_loaders_default_to_the_card(loader):
+    from text_to_video_finetuning_tpu_torch.utils import checkpoint
+
+    default = inspect.signature(getattr(checkpoint, loader)) \
+        .parameters["device"].default
+    assert default == "cuda"

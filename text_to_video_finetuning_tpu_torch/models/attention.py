@@ -8,9 +8,10 @@ text_to_video_finetuning_tpu/models/attention.py).
   second self-attention when `double_self_attention`) -> GEGLU FF; residual.
 
 Tensors are (batch, seq, channels).  Dropout layers sit where the diffusers
-state-dict indices need them; the port runs inference only, so no dropout
-rate is configurable.  The attention backend is an attribute each
-`CrossAttention` reads per call (`UNet3DConditionModel.set_attention_backend`).
+state-dict indices need them, at rate 0 as the JAX UNet builds them.  Every
+Linear is a `LoraLinear` (models/lora_layers.py).  The attention backend is
+an attribute each `CrossAttention` reads per call
+(`UNet3DConditionModel.set_attention_backend`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import AttentionBackend, dot_product_attention
+from .lora_layers import LoraLinear
 
 
 class CrossAttention(nn.Module):
@@ -33,10 +35,10 @@ class CrossAttention(nn.Module):
         self.heads = heads
         self.dim_head = dim_head
         self.attention_backend = AttentionBackend.AUTO
-        self.to_q = nn.Linear(query_dim, inner_dim, bias=False)
-        self.to_k = nn.Linear(kv_dim, inner_dim, bias=False)
-        self.to_v = nn.Linear(kv_dim, inner_dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner_dim, query_dim),
+        self.to_q = LoraLinear(query_dim, inner_dim, bias=False)
+        self.to_k = LoraLinear(kv_dim, inner_dim, bias=False)
+        self.to_v = LoraLinear(kv_dim, inner_dim, bias=False)
+        self.to_out = nn.ModuleList([LoraLinear(inner_dim, query_dim),
                                      nn.Dropout(0.0)])
 
     def forward(self, hidden_states: torch.Tensor,
@@ -59,7 +61,7 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = LoraLinear(dim_in, dim_out * 2)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         value, gate = self.proj(hidden_states).chunk(2, dim=-1)
@@ -71,7 +73,7 @@ class FeedForward(nn.Module):
         super().__init__()
         inner_dim = dim * mult
         self.net = nn.ModuleList([GEGLU(dim, inner_dim), nn.Dropout(0.0),
-                                  nn.Linear(inner_dim, dim)])
+                                  LoraLinear(inner_dim, dim)])
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         for layer in self.net:
@@ -87,8 +89,11 @@ class BasicTransformerBlock(nn.Module):
                  double_self_attention: bool = False):
         super().__init__()
         self.double_self_attention = double_self_attention
+        # registration order attn1, ff, attn2 (diffusers 0.15): modules()
+        # order fixes the LoRA site order of cloneofsimo checkpoints
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.ff = FeedForward(dim)
         self.has_attn2 = (cross_attention_dim is not None
                           or double_self_attention)
         if self.has_attn2:
@@ -97,7 +102,6 @@ class BasicTransformerBlock(nn.Module):
                 dim, heads, dim_head,
                 None if double_self_attention else cross_attention_dim)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .lora_layers import LoraLinear
+
 
 def get_timestep_embedding(timesteps: torch.Tensor,
                            embedding_dim: int) -> torch.Tensor:
@@ -33,8 +35,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_channels: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_channels, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = LoraLinear(in_channels, time_embed_dim)
+        self.linear_2 = LoraLinear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))

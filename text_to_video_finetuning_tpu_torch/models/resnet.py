@@ -2,9 +2,11 @@
 text_to_video_finetuning_tpu/models/resnet.py).
 
 diffusers `ResnetBlock2D`, `TemporalConvLayer`, `Downsample2D`,
-`Upsample2D`.  Spatial tensors are (B*F, C, H, W); the temporal conv unfolds
-frames to (B, C, F, H, W) and runs (3,1,1) 3D convs over them (ModelScope's
-temporal conv, zero-initialised last conv => identity at init).
+`Upsample2D`, with every conv and linear a LoRA branch layer
+(models/lora_layers.py).  Spatial tensors are (B*F, C, H, W); the temporal
+conv unfolds frames to (B, C, F, H, W) and runs (3,1,1) 3D convs over them
+(ModelScope's temporal conv, zero-initialised last conv => identity at
+init).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .lora_layers import LoraConv2d, LoraConv3d, LoraLinear
 
 
 class ResnetBlock2D(nn.Module):
@@ -27,12 +31,12 @@ class ResnetBlock2D(nn.Module):
         out_channels = out_channels or in_channels
         self.output_scale_factor = output_scale_factor
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+        self.conv1 = LoraConv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = (LoraLinear(temb_channels, out_channels)
                               if temb_channels else None)
         self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv2 = LoraConv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (LoraConv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, hidden_states: torch.Tensor,
@@ -53,7 +57,7 @@ def _temporal_conv(in_dim: int, out_dim: int, dropout: bool):
     layers = [nn.GroupNorm(32, in_dim, eps=1e-5), nn.SiLU()]
     if dropout:
         layers.append(nn.Dropout(0.1))
-    layers.append(nn.Conv3d(in_dim, out_dim, (3, 1, 1), padding=(1, 0, 0)))
+    layers.append(LoraConv3d(in_dim, out_dim, (3, 1, 1), padding=(1, 0, 0)))
     return nn.Sequential(*layers)
 
 
@@ -89,8 +93,8 @@ class Downsample2D(nn.Module):
     def __init__(self, channels: int, padding: int = 1):
         super().__init__()
         self.padding = padding
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
-                              padding=padding)
+        self.conv = LoraConv2d(channels, channels, 3, stride=2,
+                               padding=padding)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         if self.padding == 0:
@@ -105,7 +109,7 @@ class Upsample2D(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = LoraConv2d(channels, channels, 3, padding=1)
 
     def forward(self, hidden_states: torch.Tensor,
                 output_size: Optional[Sequence[int]] = None) -> torch.Tensor:

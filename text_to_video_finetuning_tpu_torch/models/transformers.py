@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from .attention import BasicTransformerBlock
+from .lora_layers import LoraLinear
 
 
 class Transformer2DModel(nn.Module):
@@ -29,11 +30,11 @@ class Transformer2DModel(nn.Module):
         super().__init__()
         inner_dim = num_attention_heads * attention_head_dim
         self.norm = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-6)
-        self.proj_in = nn.Linear(in_channels, inner_dim)
+        self.proj_in = LoraLinear(in_channels, inner_dim)
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
             inner_dim, num_attention_heads, attention_head_dim,
             cross_attention_dim=cross_attention_dim)])
-        self.proj_out = nn.Linear(inner_dim, in_channels)
+        self.proj_out = LoraLinear(inner_dim, in_channels)
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None
@@ -59,11 +60,11 @@ class TransformerTemporalModel(nn.Module):
         super().__init__()
         inner_dim = num_attention_heads * attention_head_dim
         self.norm = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-6)
-        self.proj_in = nn.Linear(in_channels, inner_dim)
+        self.proj_in = LoraLinear(in_channels, inner_dim)
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
             inner_dim, num_attention_heads, attention_head_dim,
             double_self_attention=True)])
-        self.proj_out = nn.Linear(inner_dim, in_channels)
+        self.proj_out = LoraLinear(inner_dim, in_channels)
 
     def forward(self, hidden_states: torch.Tensor,
                 num_frames: int = 1) -> torch.Tensor:

@@ -24,6 +24,7 @@ from torch import nn
 from ..ops.attention import AttentionBackend
 from .attention import CrossAttention
 from .embeddings import TimestepEmbedding, get_timestep_embedding
+from .lora_layers import LoraConv2d
 from .transformers import TransformerTemporalModel
 from .unet3d_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D,
                             DownBlock3D, UNetMidBlock3DCrossAttn, UpBlock3D)
@@ -85,7 +86,7 @@ class UNet3DConditionModel(nn.Module):
         time_embed_dim = ch0 * 4
         n_levels = len(cfg.block_out_channels)
 
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
+        self.conv_in = LoraConv2d(cfg.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch0, time_embed_dim)
         self.transformer_in = TransformerTemporalModel(
             8, cfg.attention_head_dim, ch0)
@@ -142,7 +143,7 @@ class UNet3DConditionModel(nn.Module):
 
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, ch0,
                                           eps=cfg.norm_eps)
-        self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        self.conv_out = LoraConv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def set_attention_backend(self, backend: str):
         """Route every attention of the model through `backend` (`auto`,
@@ -151,6 +152,13 @@ class UNet3DConditionModel(nn.Module):
         for module in self.modules():
             if isinstance(module, CrossAttention):
                 module.attention_backend = backend
+
+    def set_gradient_checkpointing(self, enable: bool = True):
+        """Checkpoint every resnet, temp_conv, attn and temp_attn unit of the
+        down, mid and up blocks, saving nothing inside a unit (the JAX
+        package's `gradient_checkpointing` with its "nothing" policy)."""
+        for block in (*self.down_blocks, self.mid_block, *self.up_blocks):
+            block.gradient_checkpointing = enable
 
     def forward(self, sample: torch.Tensor,
                 timesteps: Union[torch.Tensor, float, int],

@@ -10,8 +10,13 @@ text_to_video_finetuning_tpu/models/unet3d_blocks.py).
 * `CrossAttnUpBlock3D` / `UpBlock3D`: concat the skip on the channel axis
   first, then the same layer order as the down blocks.
 
-Layout: (B*F, C, H, W); skip concat on dim 1.  Only inference exists in the
-port so far, so there is no gradient checkpointing.
+Gradient checkpointing (`gradient_checkpointing = True` on a block) runs
+each resnet, temp_conv, attn and temp_attn unit under
+`torch.utils.checkpoint(..., use_reentrant=False)`, saving nothing inside a
+unit: the JAX package's per-unit `nn.remat` with its "nothing" policy
+(`_maybe_remat`), which is the reference's behaviour.
+
+Layout: (B*F, C, H, W); skip concat on dim 1.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .resnet import Downsample2D, ResnetBlock2D, TemporalConvLayer, Upsample2D
 from .transformers import Transformer2DModel, TransformerTemporalModel
@@ -33,6 +39,14 @@ def _transformers(channels: int, head_dim: int, cross_attention_dim: int,
             TransformerTemporalModel(heads, head_dim, channels, groups))
 
 
+def _run(unit: nn.Module, checkpointed: bool, *args):
+    """One checkpoint unit: recomputed in the backward when `checkpointed`
+    and autograd is recording."""
+    if checkpointed and torch.is_grad_enabled():
+        return checkpoint(unit, *args, use_reentrant=False)
+    return unit(*args)
+
+
 class CrossAttnDownBlock3D(nn.Module):
     has_cross_attention = True
 
@@ -43,6 +57,7 @@ class CrossAttnDownBlock3D(nn.Module):
                  cross_attention_dim: int = 1280, downsample_padding: int = 1,
                  add_downsample: bool = True):
         super().__init__()
+        self.gradient_checkpointing = False
         resnets, temp_convs, attentions, temp_attentions = [], [], [], []
         for i in range(num_layers):
             in_ch = in_channels if i == 0 else out_channels
@@ -65,16 +80,18 @@ class CrossAttnDownBlock3D(nn.Module):
     def forward(self, hidden_states: torch.Tensor, temb: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, num_frames: int = 1
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        gc = self.gradient_checkpointing
         output_states = ()
         for resnet, temp_conv, attn, temp_attn in zip(
                 self.resnets, self.temp_convs, self.attentions,
                 self.temp_attentions):
-            hidden_states = resnet(hidden_states, temb)
+            hidden_states = _run(resnet, gc, hidden_states, temb)
             if num_frames > 1:
-                hidden_states = temp_conv(hidden_states, num_frames)
-            hidden_states = attn(hidden_states, encoder_hidden_states)
+                hidden_states = _run(temp_conv, gc, hidden_states, num_frames)
+            hidden_states = _run(attn, gc, hidden_states,
+                                 encoder_hidden_states)
             if num_frames > 1:
-                hidden_states = temp_attn(hidden_states, num_frames)
+                hidden_states = _run(temp_attn, gc, hidden_states, num_frames)
             output_states += (hidden_states,)
         if self.downsamplers is not None:
             hidden_states = self.downsamplers[0](hidden_states)
@@ -90,6 +107,7 @@ class DownBlock3D(nn.Module):
                  resnet_eps: float = 1e-6, resnet_groups: int = 32,
                  downsample_padding: int = 1, add_downsample: bool = True):
         super().__init__()
+        self.gradient_checkpointing = False
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
                           out_channels, temb_channels, resnet_groups,
@@ -104,11 +122,12 @@ class DownBlock3D(nn.Module):
     def forward(self, hidden_states: torch.Tensor, temb: torch.Tensor,
                 num_frames: int = 1
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        gc = self.gradient_checkpointing
         output_states = ()
         for resnet, temp_conv in zip(self.resnets, self.temp_convs):
-            hidden_states = resnet(hidden_states, temb)
+            hidden_states = _run(resnet, gc, hidden_states, temb)
             if num_frames > 1:
-                hidden_states = temp_conv(hidden_states, num_frames)
+                hidden_states = _run(temp_conv, gc, hidden_states, num_frames)
             output_states += (hidden_states,)
         if self.downsamplers is not None:
             hidden_states = self.downsamplers[0](hidden_states)
@@ -125,6 +144,7 @@ class UNetMidBlock3DCrossAttn(nn.Module):
                  cross_attention_dim: int = 1280,
                  output_scale_factor: float = 1.0):
         super().__init__()
+        self.gradient_checkpointing = False
 
         def resnet():
             return ResnetBlock2D(in_channels, in_channels, temb_channels,
@@ -143,20 +163,26 @@ class UNetMidBlock3DCrossAttn(nn.Module):
     def forward(self, hidden_states: torch.Tensor, temb: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 num_frames: int = 1) -> torch.Tensor:
-        hidden_states = self.resnets[0](hidden_states, temb)
+        gc = self.gradient_checkpointing
+        hidden_states = _run(self.resnets[0], gc, hidden_states, temb)
         # the reference's non-checkpointed mid path runs the leading
-        # temp_convs[0] with no num_frames > 1 guard (PARITY.md "f=1
-        # mid-block temp_convs[0]"); inference never checkpoints
-        hidden_states = self.temp_convs[0](hidden_states, num_frames)
+        # temp_convs[0] with no num_frames > 1 guard, while its checkpointed
+        # path skips it at one frame (PARITY.md "f=1 mid-block
+        # temp_convs[0]"); both are kept, keyed on gradient_checkpointing
+        if num_frames > 1 or not gc:
+            hidden_states = _run(self.temp_convs[0], gc, hidden_states,
+                                 num_frames)
         # attn -> temp_attn BEFORE resnet -> temp_conv: the inverse of the
         # down/up blocks
-        hidden_states = self.attentions[0](hidden_states,
-                                           encoder_hidden_states)
+        hidden_states = _run(self.attentions[0], gc, hidden_states,
+                             encoder_hidden_states)
         if num_frames > 1:
-            hidden_states = self.temp_attentions[0](hidden_states, num_frames)
-        hidden_states = self.resnets[1](hidden_states, temb)
+            hidden_states = _run(self.temp_attentions[0], gc, hidden_states,
+                                 num_frames)
+        hidden_states = _run(self.resnets[1], gc, hidden_states, temb)
         if num_frames > 1:
-            hidden_states = self.temp_convs[1](hidden_states, num_frames)
+            hidden_states = _run(self.temp_convs[1], gc, hidden_states,
+                                 num_frames)
         return hidden_states
 
 
@@ -169,6 +195,7 @@ class CrossAttnUpBlock3D(nn.Module):
                  resnet_groups: int = 32, attn_num_head_channels: int = 1,
                  cross_attention_dim: int = 1280, add_upsample: bool = True):
         super().__init__()
+        self.gradient_checkpointing = False
         resnets, temp_convs, attentions, temp_attentions = [], [], [], []
         for i in range(num_layers):
             res_skip = in_channels if i == num_layers - 1 else out_channels
@@ -194,18 +221,20 @@ class CrossAttnUpBlock3D(nn.Module):
                 temb: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 upsample_size: Optional[Sequence[int]] = None,
                 num_frames: int = 1) -> torch.Tensor:
+        gc = self.gradient_checkpointing
         for resnet, temp_conv, attn, temp_attn in zip(
                 self.resnets, self.temp_convs, self.attentions,
                 self.temp_attentions):
             skip = res_hidden_states_tuple[-1]
             res_hidden_states_tuple = res_hidden_states_tuple[:-1]
             hidden_states = torch.cat([hidden_states, skip], dim=1)
-            hidden_states = resnet(hidden_states, temb)
+            hidden_states = _run(resnet, gc, hidden_states, temb)
             if num_frames > 1:
-                hidden_states = temp_conv(hidden_states, num_frames)
-            hidden_states = attn(hidden_states, encoder_hidden_states)
+                hidden_states = _run(temp_conv, gc, hidden_states, num_frames)
+            hidden_states = _run(attn, gc, hidden_states,
+                                 encoder_hidden_states)
             if num_frames > 1:
-                hidden_states = temp_attn(hidden_states, num_frames)
+                hidden_states = _run(temp_attn, gc, hidden_states, num_frames)
         if self.upsamplers is not None:
             hidden_states = self.upsamplers[0](hidden_states, upsample_size)
         return hidden_states
@@ -219,6 +248,7 @@ class UpBlock3D(nn.Module):
                  num_layers: int = 1, resnet_eps: float = 1e-6,
                  resnet_groups: int = 32, add_upsample: bool = True):
         super().__init__()
+        self.gradient_checkpointing = False
         resnets = []
         for i in range(num_layers):
             res_skip = in_channels if i == num_layers - 1 else out_channels
@@ -238,13 +268,14 @@ class UpBlock3D(nn.Module):
                 temb: torch.Tensor,
                 upsample_size: Optional[Sequence[int]] = None,
                 num_frames: int = 1) -> torch.Tensor:
+        gc = self.gradient_checkpointing
         for resnet, temp_conv in zip(self.resnets, self.temp_convs):
             skip = res_hidden_states_tuple[-1]
             res_hidden_states_tuple = res_hidden_states_tuple[:-1]
             hidden_states = torch.cat([hidden_states, skip], dim=1)
-            hidden_states = resnet(hidden_states, temb)
+            hidden_states = _run(resnet, gc, hidden_states, temb)
             if num_frames > 1:
-                hidden_states = temp_conv(hidden_states, num_frames)
+                hidden_states = _run(temp_conv, gc, hidden_states, num_frames)
         if self.upsamplers is not None:
             hidden_states = self.upsamplers[0](hidden_states, upsample_size)
         return hidden_states

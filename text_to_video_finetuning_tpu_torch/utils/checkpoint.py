@@ -12,7 +12,9 @@ bf16 through `torch.frombuffer`), so no `safetensors` package is needed.
 
 `from_jax_params` is the weight bridge from the JAX package: its flax
 parameters, flattened to numpy, become a state dict of the port's module,
-through the key and layout maps of `utils/torch_names.py`.
+through the key and layout maps of `utils/torch_names.py`; `lora_from_jax`
+carries a JAX LoRA tree the same way.  The loaders put models on the card
+unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -27,13 +29,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from text_to_video_finetuning_tpu.utils.torch_names import (
-    flax_tensor_to_torch, flax_to_torch_key)
-
 from ..models.clip_text import CLIPTextConfig, CLIPTextModel
 from ..models.unet3d import UNet3DConditionModel, UNet3DConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..schedulers.ddpm import SchedulerConfig
+from .torch_names import flax_tensor_to_torch, flax_to_torch_key
 
 # old diffusers VAE attention key names -> new
 _VAE_ATTN_RENAMES = {
@@ -151,9 +151,26 @@ def from_jax_params(flat_params: Mapping[Union[str, Tuple[str, ...]],
         torch_name = flax_to_torch_key(path[:-1], kind)
         leaf, tarr = flax_tensor_to_torch(path[-1], np.asarray(arr))
         sd[f"{torch_name}.{leaf}"] = torch.from_numpy(
-            np.ascontiguousarray(tarr, dtype=np.float32))
+            np.array(tarr, dtype=np.float32, order="C"))
     return sd
 
+
+
+def lora_from_jax(flat_lora: Mapping[Union[str, Tuple[str, ...]],
+                                     np.ndarray],
+                  kind: str = "unet"
+                  ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's LoRA tree -> the port's LoRA parameters
+    {site torch name: {'down', 'up'}} (lora/overlay.py).  The JAX tree is
+    already in cloneofsimo's torch layout, so this is a re-keying of each
+    site's flax path to its torch name; the tensors are fp32 copies."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for path, arr in flat_lora.items():
+        path = tuple(path.split("/")) if isinstance(path, str) else tuple(path)
+        name = flax_to_torch_key(path[:-1], kind)
+        out.setdefault(name, {})[path[-1]] = torch.from_numpy(
+            np.array(arr, dtype=np.float32))
+    return out
 
 # -- configs -------------------------------------------------------------------
 
@@ -270,19 +287,19 @@ def _load_module(module_cls, config, model_dir: str, kind: str,
     return model.to(device=device, dtype=dtype).eval()
 
 
-def load_unet(model_dir: str, device="cpu",
+def load_unet(model_dir: str, device="cuda",
               dtype: Optional[torch.dtype] = None) -> UNet3DConditionModel:
     return _load_module(UNet3DConditionModel, load_unet_config(model_dir),
                         model_dir, "unet", device, dtype)
 
 
-def load_vae(model_dir: str, device="cpu",
+def load_vae(model_dir: str, device="cuda",
              dtype: Optional[torch.dtype] = None) -> AutoencoderKL:
     return _load_module(AutoencoderKL, load_vae_config(model_dir), model_dir,
                         "vae", device, dtype)
 
 
-def load_text_encoder(model_dir: str, device="cpu",
+def load_text_encoder(model_dir: str, device="cuda",
                       dtype: Optional[torch.dtype] = None) -> CLIPTextModel:
     return _load_module(CLIPTextModel, load_clip_config(model_dir),
                         model_dir, "text_encoder", device, dtype)

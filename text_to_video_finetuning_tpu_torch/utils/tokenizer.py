@@ -22,11 +22,6 @@ import re
 import unicodedata
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-# stdlib-only writer of a character-level CLIP tokenizer directory, for
-# pipelines built without a downloaded tokenizer (re-exported)
-from text_to_video_finetuning_tpu.utils.simple_tokenizer import (  # noqa: F401
-    write_minimal_clip_tokenizer)
-
 _PAT = re.compile(
     r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
     r"|[^\W\d_]+|\d|(?:[^\s\w]|_)+", re.IGNORECASE)
@@ -198,3 +193,38 @@ class CLIPTokenizer:
         return BatchEncoding([self.encode(t, add_special_tokens, max_length,
                                           truncation, padding)
                               for t in texts])
+
+
+def write_minimal_clip_tokenizer(out_dir: str, vocab_size_floor: int = 512
+                                 ) -> int:
+    """Write a character-level CLIP tokenizer directory (byte vocab, no
+    merges, `vocab_size_floor` entries with the two specials last) and
+    return its vocabulary size.  For pipelines built without a downloaded
+    tokenizer: token ids differ from the real vocabulary, but 77-token
+    padding and bos / eos behave the same.  A copy of the JAX package's
+    `utils/simple_tokenizer.py`, which writes the same files."""
+    os.makedirs(out_dir, exist_ok=True)
+    chars = [chr(c) for c in range(32, 127)]
+    vocab: Dict[str, int] = {}
+    for ch in chars:
+        vocab.setdefault(ch, len(vocab))
+    for ch in chars:
+        vocab.setdefault(ch + "</w>", len(vocab))
+    i = 0
+    while len(vocab) < vocab_size_floor - 2:
+        vocab.setdefault(f"<unused{i}>", len(vocab))
+        i += 1
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    specials = {"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+                "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>"}
+    with open(os.path.join(out_dir, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(out_dir, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"model_max_length": 77, **specials,
+                   "tokenizer_class": "CLIPTokenizer"}, f)
+    with open(os.path.join(out_dir, "special_tokens_map.json"), "w") as f:
+        json.dump(specials, f)
+    return len(vocab)
