@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the
-hand-written flash-attention kernels (forward K1, backward K2 dK/dV and K3
-dQ), checks each against its plain PyTorch version, serves three requests
-through the port's serving path and takes LoRA training steps through its
-training path, both at the full width of the ms-1.7b model (random weights
+hand-written kernels (flash attention: forward K1, backward K2 dK/dV and K3
+dQ; fused GroupNorm+SiLU: forward K4, backward K5), checks each against its
+plain PyTorch version, serves three requests through the port's serving
+path and takes LoRA training steps through its training path in four
+configurations, all at the full width of the ms-1.7b model (random weights
 from a seed).
 
     python3 chip_smoke.py
@@ -23,11 +24,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      training shape, fp32 and bf16, dO = cos(o); timed beside the plain
      backward and SDPA's backward (forward + backward minus forward);
   7. the training path: `training.build.build()` (ms-1.7b, rank-16 LoRA,
-     256x256x16 cached latents, two-pass loss, checkpointing, AdamW), one
-     warm step and four timed steps, with K1 / K2 / K3 launches checked per
-     step against the counts derived from the model;
+     256x256x16 cached latents, two-pass loss, checkpointing with the
+     "nothing" policy, AdamW), one warm step and four timed steps, with the
+     K1-K5 launches checked per step against the counts derived from the
+     model;
   8. the backward in context: one pass's LoRA gradients at full width, flash
-     vs plain attention, with fp32 and with bf16 weights.
+     vs plain attention, with fp32 and with bf16 weights;
+  9. K4 and K5 against the plain pair, fp32 and bf16, dy = cos(y), on small
+     shapes (ragged slabs, G = 4 / 8 / 32) and on every distinct GroupNorm
+     shape of the 256 px and the 576x320 training steps (derived from the
+     model); timed beside the plain pair and the two library calls the
+     unfused model makes (`F.group_norm` then `F.silu`, and their autograd
+     backward) at the largest 256 px training norm;
+ 10. training at bench.py's headline, `build(remat_policy=
+     "conv_attn_dense+skiplow3", fused_groupnorm=True)`: one warm and four
+     timed steps, launches checked per step;
+ 11. the same headline unfused (one warm, one timed step), then fused vs
+     unfused GroupNorm in context: one pass's LoRA gradients at full width,
+     fp32 and bf16;
+ 12. `fusedgn+auto` (fused GroupNorm, the "nothing" policy): one warm, one
+     timed step;
+ 13. the 576x320 variant `hires16-fusedgn` (latents 40x72, 16 frames, the
+     headline policy, fused GroupNorm): one warm and two timed steps.
 The last two lines are the kernels record and the device record (JSON).
 Timings are smoke timings (CUDA events / host clock), not a benchmark.
 """
@@ -36,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -71,6 +90,22 @@ REQUESTS = [
 STEPS, GUIDANCE, SIZE = 25, 9.0, 256
 FLASH_PER_UNET = 5      # 1024-token self-attentions per UNet forward at 256px
 TRAIN_STEPS = 4
+HEADLINE = "conv_attn_dense+skiplow3"   # bench.py's remat policy
+HIRES = dict(frames=16, latent_hw=(40, 72))
+# K4/K5: (label, x shape NCHW, groups), beside the training steps' shapes
+GN_SMALL = [
+    ("ragged_7x5_g4", (1, 32, 7, 5), 4),
+    ("g8", (3, 32, 8, 8), 8),
+    ("g32", (2, 64, 16, 16), 32),
+    ("odd_9x11_g8", (2, 24, 9, 11), 8),
+]
+GN_TIMED = (16, 960, 32, 32)    # the largest 256 px training norm
+GN_EPS = 1e-5                   # UNET3D_MS_1_7B_CONFIG.norm_eps
+GN_FP32_TOL = 1e-4              # max |d y|, |d mean|, |d rstd|, |d dx|
+GN_BF16_EXCESS = 1.5            # bf16 kernel error / bf16 plain error
+# fp32 operations per element, for the operations bound: statistics,
+# normalise + affine, SiLU (K4); SiLU', both group sums, dx twice (K5)
+GN_OPS_PER_ELEMENT = {"K4": 12, "K5": 30}
 # the H100 SXM's published dense peaks and memory rate: operations per
 # second by input type, bytes per second
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
@@ -383,81 +418,188 @@ def serve(fa):
     return serving_launches
 
 
+def counters():
+    """{kernel: (module, attribute)} of the wrappers' launch counts."""
+    from text_to_video_finetuning_tpu_torch.ops import flash_attention as fa
+    from text_to_video_finetuning_tpu_torch.ops import groupnorm as gn
+    return {"K1": (fa, "launch_count"), "K2": (fa, "dkv_launch_count"),
+            "K3": (fa, "dq_launch_count"), "K4": (gn, "fwd_launch_count"),
+            "K5": (gn, "bwd_launch_count")}
+
+
+def read_counts():
+    return {k: getattr(m, a) for k, (m, a) in counters().items()}
+
+
+def zero_counts():
+    for m, a in counters().values():
+        setattr(m, a, 0)
+
+
+def unet_levels(unet):
+    """(block, level) for the down blocks, the mid block (the lowest level)
+    and the up blocks; level 0 is the full latent resolution."""
+    n = len(unet.down_blocks)
+    return ([(b, i) for i, b in enumerate(unet.down_blocks)]
+            + [(unet.mid_block, n - 1)]
+            + [(b, n - 1 - i) for i, b in enumerate(unet.up_blocks)])
+
+
+def level_hw(lh, lw, level):
+    """Latent size at a level: each 3x3 stride-2 pad-1 downsample takes
+    ceil(size / 2)."""
+    for _ in range(level):
+        lh, lw = -(-lh // 2), -(-lw // 2)
+    return lh, lw
+
+
 def expected_train_launches(unet, batch, cfg):
-    """Per-step launch counts derived from the model: K1 runs on every
-    spatial self-attention of the full-resolution level (q and kv have
-    H*W >= 1024 tokens there; cross-attention has 77 keys and temporal
-    attention F, so `auto` keeps them plain), once in each pass's forward
-    and once more when checkpointing recomputes its unit in the backward;
-    K2 and K3 run once per K1 forward."""
+    """Per-step launch counts derived from the model, block by block:
+    - K1 runs on a spatial self-attention whose level has H*W >= 1024
+      tokens (cross-attention has 77 keys and temporal attention F, so
+      `auto` keeps them plain), once in each pass's forward and once more
+      when checkpointing recomputes its unit, unless the block's policy
+      saves `attn_out`; K2 and K3 run once per K1 forward;
+    - K4 runs on each fused GroupNorm (two per ResnetBlock2D) in each
+      pass's forward and again in a checkpointed block's recompute (no
+      policy saves a norm's output); K5 once per forward norm, since every
+      norm's input depends on the LoRA (transformer_in at F > 1 is a LoRA
+      site)."""
+    from text_to_video_finetuning_tpu_torch.models.remat import (
+        ATTN_TAG, REMAT_POLICIES)
+    from text_to_video_finetuning_tpu_torch.models.resnet import (
+        FusedGroupNormSiLU)
+
     _, _, frames, lh, lw = batch["pixel_values"].shape
-    per_forward = 0
-    if lh * lw >= 1024:
-        per_forward = (len(unet.down_blocks[0].attentions)
-                       + len(unet.up_blocks[-1].attentions))
     passes = 2 if frames > 1 and cfg.two_pass else 1
-    recompute = 2 if unet.down_blocks[0].gradient_checkpointing else 1
-    return {"K1": passes * per_forward * recompute,
-            "K2": passes * per_forward, "K3": passes * per_forward}
+    k1 = k2 = k4 = k5 = 0
+    for block, level in unet_levels(unet):
+        h, w = level_hw(lh, lw, level)
+        ckpt = block.gradient_checkpointing
+        spec = REMAT_POLICIES[block.remat_policy]
+        attn_saved = spec is not None and ATTN_TAG in spec[0]
+        flash = len(getattr(block, "attentions", ())) if h * w >= 1024 else 0
+        k2 += flash
+        k1 += flash * (2 if ckpt and not attn_saved else 1)
+        norms = sum(isinstance(m, FusedGroupNormSiLU)
+                    for r in block.resnets for m in r.children())
+        k5 += norms
+        k4 += norms * (2 if ckpt else 1)
+    return {"K1": passes * k1, "K2": passes * k2, "K3": passes * k2,
+            "K4": passes * k4, "K5": passes * k5}
 
 
-def train(fa):
-    """Phase 7; returns (per-step K1, K2, K3 launch totals over the timed
-    steps, the built step)."""
+def train_path(label, kwargs, timed, check_base=False, norm_shapes=None):
+    """One training configuration: `build(**kwargs)` at full width, one
+    warm step and `timed` timed steps, each with its peak memory and its
+    K1-K5 launches checked against `expected_train_launches`.  With
+    `norm_shapes`, every fused GroupNorm input of the warm step must be one
+    of them (the shapes phase 9 checked).  Returns (the launches of the
+    timed steps, read just after them; (step, state, batch, cfg))."""
+    from text_to_video_finetuning_tpu_torch.models.resnet import (
+        FusedGroupNormSiLU)
     from text_to_video_finetuning_tpu_torch.training.build import build
 
     t0 = time.perf_counter()
     step, state, batch, cfg = build(grad_ckpt=True, backend="auto",
-                                    seed=SEED)
+                                    seed=SEED, **kwargs)
     torch.cuda.synchronize()
     unet = cfg.unet
     n_lora = sum(t.numel() for e in state.trainable["unet_lora"].values()
                  for t in e.values())
-    print(f"training build: {time.perf_counter() - t0:.1f} s, "
-          f"{len(cfg.unet_sites)} LoRA sites, {n_lora} LoRA parameters, "
-          f"latents {tuple(batch['pixel_values'].shape)}")
+    print(f"training build [{label}] {kwargs}: "
+          f"{time.perf_counter() - t0:.1f} s, {len(cfg.unet_sites)} LoRA "
+          f"sites, {n_lora} LoRA parameters, latents "
+          f"{tuple(batch['pixel_values'].shape)}")
     expected = expected_train_launches(unet, batch, cfg)
-    base = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    base = ({n: p.detach().clone() for n, p in unet.named_parameters()}
+            if check_base else None)
+    seen, hooks = set(), []
+    if norm_shapes is not None:
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: seen.add(tuple(args[0].shape)))
+            for m in unet.modules() if isinstance(m, FusedGroupNormSiLU)]
 
+    t0 = time.perf_counter()
     state, metrics = step(state, batch)             # warm step
     torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    if norm_shapes is not None:
+        if not seen or not seen <= set(norm_shapes):
+            fail(f"[{label}] GroupNorm shapes {sorted(seen - set(norm_shapes))}"
+                 " were not checked in phase 9")
+        print(f"[{label}] the step's {len(seen)} GroupNorm shapes were all "
+              "checked in phase 9")
     ups = [e["up"] for e in state.trainable["unet_lora"].values()]
     if not any(bool((u != 0).any()) for u in ups):
-        fail("no lora_up moved after the first step")
-    print(f"warm step: loss0 {metrics['loss0'].item():.6f} loss1 "
+        fail(f"[{label}] no lora_up moved after the first step")
+    print(f"[{label}] warm step: {time.perf_counter() - t0:.2f} s, loss0 "
+          f"{metrics['loss0'].item():.6f} loss1 "
           f"{metrics['loss1'].item():.6f}")
 
-    fa.launch_count = fa.dkv_launch_count = fa.dq_launch_count = 0
-    for i in range(TRAIN_STEPS):
-        before = (fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count)
+    zero_counts()                                   # the path starts here
+    for i in range(timed):
+        before = read_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        got = dict(zip(("K1", "K2", "K3"), (
-            a - b for a, b in zip((fa.launch_count, fa.dkv_launch_count,
-                                   fa.dq_launch_count), before))))
+        after = read_counts()
+        got = {k: after[k] - before[k] for k in after}
         loss0, loss1 = metrics["loss0"].item(), metrics["loss1"].item()
-        print(f"train step {i}: {seconds:.4f} s, peak "
+        print(f"[{label}] train step {i}: {seconds:.4f} s, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss0 "
               f"{loss0:.6f} loss1 {loss1:.6f} grad_norm "
               f"{metrics['grad_norm'].item():.4e}, launches {got} "
               f"(expected {expected})")
         if got != expected:
-            fail(f"train step {i}: launches {got}, expected {expected}")
+            fail(f"[{label}] train step {i}: launches {got}, expected "
+                 f"{expected}")
         if not (torch.isfinite(torch.tensor([loss0, loss1])).all()):
-            fail(f"train step {i}: non-finite loss")
-    launches = {"K1": fa.launch_count, "K2": fa.dkv_launch_count,
-                "K3": fa.dq_launch_count}     # read just after the path
-    changed = [n for n, p in unet.named_parameters()
-               if not torch.equal(p, base[n])]
-    if changed:
-        fail(f"base weights changed: {changed[:5]}")
-    del base
-    print(f"base weights unchanged bitwise over {TRAIN_STEPS + 1} steps")
-    return launches, state, batch, cfg
+            fail(f"[{label}] train step {i}: non-finite loss")
+    launches = read_counts()                        # read just after it
+    if base is not None:
+        changed = [n for n, p in unet.named_parameters()
+                   if not torch.equal(p, base[n])]
+        if changed:
+            fail(f"base weights changed: {changed[:5]}")
+        del base
+        print(f"base weights unchanged bitwise over {timed + 1} steps")
+    return launches, (step, state, batch, cfg)
+
+
+def lora_grads(cfg, state, batch, noise, timesteps, dtype, g):
+    """One pass's LoRA gradients (`two_pass=False`, eval mode, the given
+    noise and timesteps) with the models cast to `dtype`, flattened fp32."""
+    from text_to_video_finetuning_tpu_torch.training.optim import leaves
+    from text_to_video_finetuning_tpu_torch.training.train_step import (
+        make_loss_fn)
+
+    loss_fn = make_loss_fn(dataclasses.replace(cfg, two_pass=False,
+                                               eval_train=True))
+    cfg.unet.to(dtype)
+    cfg.text_encoder.to(dtype)
+    params = list(leaves(state.trainable))
+    for p in params:
+        p.grad = None
+    loss, _ = loss_fn(state.trainable,
+                      {"pixel_values": batch["pixel_values"].to(dtype),
+                       "prompt_ids": batch["prompt_ids"]},
+                      g, noise=noise.to(dtype), timesteps=timesteps)
+    loss.backward()
+    return torch.cat([p.grad.flatten().float() for p in params])
+
+
+def fixed_draws(batch, cfg, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    latents = batch["pixel_values"]
+    noise = torch.randn(latents.shape, generator=g, device="cuda")
+    timesteps = torch.randint(0, cfg.scheduler.num_train_timesteps, (1,),
+                              generator=g, device="cuda")
+    return g, noise, timesteps
 
 
 def grads_in_context(state, batch, cfg):
@@ -466,33 +608,13 @@ def grads_in_context(state, batch, cfg):
     weights: relative L2 <= GRAD_FP32_REL_L2_TOL.  bf16: flash's error
     against the fp32 plain gradients within UNET_BF16_EXCESS of plain
     bf16's (the phase-5 rule, for the same noise-floor reason)."""
-    from text_to_video_finetuning_tpu_torch.training.optim import leaves
-    from text_to_video_finetuning_tpu_torch.training.train_step import (
-        make_loss_fn)
-
-    loss_fn = make_loss_fn(dataclasses.replace(cfg, two_pass=False,
-                                               eval_train=True))
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    latents = batch["pixel_values"]
-    noise = torch.randn(latents.shape, generator=g, device="cuda")
-    timesteps = torch.randint(0, cfg.scheduler.num_train_timesteps, (1,),
-                              generator=g, device="cuda")
-    params = list(leaves(state.trainable))
+    g, noise, timesteps = fixed_draws(batch, cfg, SEED + 2)
     grads = {}
     for dtype in (torch.float32, torch.bfloat16):
-        cfg.unet.to(dtype)
-        cfg.text_encoder.to(dtype)
         for backend in ("flash", "plain"):
             cfg.unet.set_attention_backend(backend)
-            for p in params:
-                p.grad = None
-            loss, _ = loss_fn(state.trainable,
-                              {"pixel_values": latents.to(dtype),
-                               "prompt_ids": batch["prompt_ids"]},
-                              g, noise=noise.to(dtype), timesteps=timesteps)
-            loss.backward()
-            grads[dtype, backend] = torch.cat(
-                [p.grad.flatten().float() for p in params])
+            grads[dtype, backend] = lora_grads(cfg, state, batch, noise,
+                                               timesteps, dtype, g)
     cfg.unet.set_attention_backend("auto")
     ref = grads[torch.float32, "plain"]
     fp32 = rel_l2(grads[torch.float32, "flash"], ref)
@@ -506,6 +628,176 @@ def grads_in_context(state, batch, cfg):
     if not err_flash <= UNET_BF16_EXCESS * err_plain:
         fail(f"LoRA gradients bf16 flash error {err_flash} exceeds plain's "
              f"{err_plain} by more than {UNET_BF16_EXCESS}x")
+
+
+def grads_fused_vs_unfused(fused, unfused):
+    """Phase 11: one pass's LoRA gradients at full width through the fused
+    GroupNorm (K4/K5) and through `nn.GroupNorm` + SiLU, the same weights
+    (the unfused UNet and CLIP load the fused ones' state dicts) and the
+    same LoRA, fixed draws.  fp32: relative L2 <= GRAD_FP32_REL_L2_TOL.
+    bf16: the fused error against the fp32 unfused gradients within
+    UNET_BF16_EXCESS of the unfused bf16 error."""
+    (_, state, batch, cfg_f), (_, _, _, cfg_u) = fused, unfused
+    cfg_u.unet.load_state_dict(cfg_f.unet.state_dict())
+    cfg_u.text_encoder.load_state_dict(cfg_f.text_encoder.state_dict())
+    g, noise, timesteps = fixed_draws(batch, cfg_f, SEED + 3)
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, cfg in (("fused", cfg_f), ("unfused", cfg_u)):
+            grads[dtype, name] = lora_grads(cfg, state, batch, noise,
+                                            timesteps, dtype, g)
+    ref = grads[torch.float32, "unfused"]
+    fp32 = rel_l2(grads[torch.float32, "fused"], ref)
+    err_fused = rel_l2(grads[torch.bfloat16, "fused"], ref)
+    err_unfused = rel_l2(grads[torch.bfloat16, "unfused"], ref)
+    print(f"LoRA gradients of one pass at the headline policy, relative L2: "
+          f"fp32 fused vs unfused GroupNorm {fp32:.3e}; against fp32 "
+          f"unfused: bf16 fused {err_fused:.3e}, bf16 unfused "
+          f"{err_unfused:.3e}")
+    if not fp32 <= GRAD_FP32_REL_L2_TOL:
+        fail(f"LoRA gradients fp32 fused vs unfused relative L2 {fp32}")
+    if not err_fused <= UNET_BF16_EXCESS * err_unfused:
+        fail(f"LoRA gradients bf16 fused error {err_fused} exceeds the "
+             f"unfused {err_unfused} by more than {UNET_BF16_EXCESS}x")
+
+
+def step_norm_shapes(frames, latent_hw, batch=1):
+    """Every distinct input shape of the fused GroupNorms in a training
+    step of the ms-1.7b UNet at these latents (the model built on the meta
+    device)."""
+    from text_to_video_finetuning_tpu_torch.models.unet3d import (
+        UNET3D_MS_1_7B_CONFIG, UNet3DConditionModel)
+
+    with torch.device("meta"):
+        unet = UNet3DConditionModel(UNET3D_MS_1_7B_CONFIG,
+                                    fused_groupnorm=True)
+    shapes = set()
+    for block, level in unet_levels(unet):
+        h, w = level_hw(*latent_hw, level)
+        for r in block.resnets:
+            for norm in (r.norm1, r.norm2):
+                shapes.add((batch * frames, norm.num_channels, h, w))
+    return sorted(shapes), unet.config.norm_num_groups
+
+
+def gn_bound(kind, shape, groups, dtype):
+    """(least ms on the card, 'operations' or 'bytes', bytes) for one call
+    of K4 or K5 as the training step makes it: x (and dy) read and y (dx)
+    written once, gamma / beta read, mean / rstd written (K4) or read (K5);
+    fp32 operations over 67 TFLOP/s."""
+    n, c = shape[:2]
+    numel = math.prod(shape)
+    item = torch.tensor([], dtype=dtype).element_size()
+    tensors = 2 if kind == "K4" else 3
+    nbytes = tensors * numel * item + 2 * c * item + 2 * n * groups * 4
+    t_ops = GN_OPS_PER_ELEMENT[kind] * numel / PEAK_OPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes", nbytes)
+
+
+def check_k4_k5(gn, shapes, groups):
+    """Phase 9: K4 and K5 against the plain pair on GN_SMALL and `shapes`
+    (the training steps'), fp32 and bf16, dy = cos(y).  fp32: max |d| <=
+    GN_FP32_TOL on y, mean, rstd and dx (and, on the small shapes, on
+    dgamma / dbeta relative to max(1, max |ref|)).  bf16 x, dy and
+    parameters: the kernels' y and dx errors against the fp32 plain result
+    within GN_BF16_EXCESS of the plain bf16 pair's.  Then times both
+    kernels at GN_TIMED (bf16, dx only, as the training step calls K5)
+    beside the plain pair and the library's two calls.  Returns
+    {'K4': rec, 'K5': rec}."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases = GN_SMALL + [(f"step_{'x'.join(map(str, s))}", s, groups)
+                        for s in shapes]
+    worst = {"K4": 0.0, "K5": 0.0}
+    worst_ratio = {"K4": 0.0, "K5": 0.0}
+    for label, shape, G in cases:
+        small = label in {c[0] for c in GN_SMALL}
+        x = torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3
+        c = shape[1]
+        w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+        b = 0.1 * torch.randn(c, device="cuda", generator=g)
+        ref = gn.group_norm_silu_reference(x, w, b, G, GN_EPS)
+        got = gn.group_norm_silu_fwd_cuda(x, w, b, G, GN_EPS)
+        dy = torch.cos(ref[0])
+        bref = gn.group_norm_silu_bwd_reference(x, w, b, ref[1], ref[2], dy,
+                                                G)
+        bgot = gn.group_norm_silu_bwd_cuda(x, w, b, ref[1], ref[2], dy, G,
+                                           affine_grads=small)
+        torch.cuda.synchronize()
+        e_fwd = max((a - r).abs().max().item() for a, r in zip(got, ref))
+        e_dx = (bgot[0] - bref[0]).abs().max().item()
+        e_aff = 0.0
+        if small:
+            e_aff = max((a - r).abs().max().item()
+                        / max(1.0, r.abs().max().item())
+                        for a, r in zip(bgot[1:], bref[1:]))
+        x16, w16, b16, dy16 = (t.bfloat16() for t in (x, w, b, dy))
+        y16, m16, r16 = gn.group_norm_silu_fwd_cuda(x16, w16, b16, G, GN_EPS)
+        p16 = gn.group_norm_silu_reference(x16, w16, b16, G, GN_EPS)
+        dx16 = gn.group_norm_silu_bwd_cuda(x16, w16, b16, m16, r16, dy16, G,
+                                           affine_grads=False)[0]
+        pdx16 = gn.group_norm_silu_bwd_reference(x16, w16, b16, p16[1],
+                                                 p16[2], dy16, G)[0]
+        torch.cuda.synchronize()
+        e16 = {"K4": (y16.float() - ref[0]).abs().max().item(),
+               "K5": (dx16.float() - bref[0]).abs().max().item()}
+        p16e = {"K4": (p16[0].float() - ref[0]).abs().max().item(),
+                "K5": (pdx16.float() - bref[0]).abs().max().item()}
+        print(f"K4/K5 {label} {tuple(shape)} G={G}: fp32 max|d y,mean,rstd|"
+              f"={e_fwd:.3e} max|d dx|={e_dx:.3e}"
+              + (f" dgamma/dbeta rel {e_aff:.3e}" if small else "")
+              + f"; bf16 y {e16['K4']:.3e} vs plain {p16e['K4']:.3e}, dx "
+              f"{e16['K5']:.3e} vs plain {p16e['K5']:.3e}")
+        if max(e_fwd, e_dx, e_aff) > GN_FP32_TOL:
+            fail(f"K4/K5 disagree with the plain pair at {label}")
+        for k in ("K4", "K5"):
+            if not e16[k] <= GN_BF16_EXCESS * p16e[k]:
+                fail(f"{k} bf16 at {label}: {e16[k]} against plain "
+                     f"{p16e[k]}")
+            worst[k] = max(worst[k], e16[k])
+            worst_ratio[k] = max(worst_ratio[k], e16[k] / p16e[k])
+    print(f"K4/K5: {len(cases)} shapes; worst bf16 error / plain bf16 error "
+          f"K4 {worst_ratio['K4']:.3f}, K5 {worst_ratio['K5']:.3f}")
+
+    x = torch.randn(GN_TIMED, device="cuda", generator=g).bfloat16()
+    c = GN_TIMED[1]
+    w = (1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)).bfloat16()
+    b = (0.1 * torch.randn(c, device="cuda", generator=g)).bfloat16()
+    y, mean, rstd = gn.group_norm_silu_fwd_cuda(x, w, b, groups, GN_EPS)
+    dy = torch.cos(y.float()).bfloat16()
+    with torch.no_grad():
+        k4_ms = cuda_ms(lambda: gn.group_norm_silu_fwd_cuda(x, w, b, groups,
+                                                            GN_EPS))
+        k4_plain = cuda_ms(lambda: gn.group_norm_silu_reference(
+            x, w, b, groups, GN_EPS))
+        k4_lib = cuda_ms(lambda: F.silu(F.group_norm(x, groups, w, b,
+                                                     GN_EPS)))
+        k5_ms = cuda_ms(lambda: gn.group_norm_silu_bwd_cuda(
+            x, w, b, mean, rstd, dy, groups, affine_grads=False))
+        k5_plain = cuda_ms(lambda: gn.group_norm_silu_bwd_reference(
+            x, w, b, mean, rstd, dy, groups))
+    xr = x.detach().requires_grad_()
+    y_lib = F.silu(F.group_norm(xr, groups, w, b, GN_EPS))
+    k5_lib = cuda_ms(lambda: torch.autograd.grad(y_lib, xr, dy,
+                                                 retain_graph=True))
+    out = {}
+    for k, ms, plain_ms, lib_ms in (("K4", k4_ms, k4_plain, k4_lib),
+                                    ("K5", k5_ms, k5_plain, k5_lib)):
+        bound_ms, bound_by, nbytes = gn_bound(k, GN_TIMED, groups,
+                                              torch.bfloat16)
+        out[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      max_abs_err=worst[k])
+        print(f"{k} {GN_TIMED} bf16: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (two calls: F.group_norm then "
+              f"F.silu{', autograd backward' if k == 'K5' else ''}) "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s); {nbytes / ms / 1e6:.1f}"
+              " GB/s achieved (CUDA events, median of 10)")
+    return out
 
 
 def main() -> int:
@@ -522,10 +814,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from text_to_video_finetuning_tpu_torch.ops import flash_attention as fa
+    from text_to_video_finetuning_tpu_torch.ops import groupnorm as gn
+    from text_to_video_finetuning_tpu_torch.ops import kernel_build
 
     # 2. build every kernel
     t0 = time.perf_counter()
-    libs = fa.build(force=True)
+    libs = kernel_build.build(force=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, "
           f"{len(libs)} sources in parallel: {sorted(libs)})")
 
@@ -539,32 +833,85 @@ def main() -> int:
     # 6. K2 / K3 against the plain backward
     bwd = check_k2_k3(fa)
 
-    # 7. the training path at full width
-    train_launches, state, batch, cfg = train(fa)
+    by_path = {}
+    # 7. the training path at full width (the "nothing" policy, unfused)
+    by_path["training"], built = train_path("default", {}, TRAIN_STEPS,
+                                            check_base=True)
 
     # 8. the backward in context
-    grads_in_context(state, batch, cfg)
+    grads_in_context(*built[1:])
+    del built
+    torch.cuda.empty_cache()
+
+    # 9. K4 / K5 against the plain pair, on the steps' GroupNorm shapes
+    shapes, groups = step_norm_shapes(16, (32, 32))
+    hires_shapes, _ = step_norm_shapes(HIRES["frames"], HIRES["latent_hw"])
+    gn_timed = check_k4_k5(gn, shapes + hires_shapes, groups)
+
+    # 10. bench.py's headline with the fused GroupNorm
+    by_path["headline_fused"], fused = train_path(
+        "headline_fused", dict(remat_policy=HEADLINE, fused_groupnorm=True),
+        TRAIN_STEPS, norm_shapes=shapes)
+
+    # 11. the headline unfused, and fused vs unfused in context
+    by_path["headline_unfused"], unfused = train_path(
+        "headline_unfused", dict(remat_policy=HEADLINE), 1)
+    grads_fused_vs_unfused(fused, unfused)
+    del fused, unfused
+    torch.cuda.empty_cache()
+
+    # 12. fusedgn+auto: the fused GroupNorm under the "nothing" policy
+    by_path["fusedgn_auto"], built = train_path(
+        "fusedgn_auto", dict(fused_groupnorm=True), 1)
+    del built
+    torch.cuda.empty_cache()
+
+    # 13. hires16-fusedgn: 576x320 (latents 40x72), 16 frames
+    by_path["hires_fused"], built = train_path(
+        "hires_fused", dict(remat_policy=HEADLINE, fused_groupnorm=True,
+                            **HIRES), 2, norm_shapes=hires_shapes)
+    del built
+    torch.cuda.empty_cache()
+
+    def launches(k):
+        return {path: counts[k] for path, counts in by_path.items()
+                if counts[k]}
 
     source = "text_to_video_finetuning_tpu_torch/csrc/"
     replaces = "text_to_video_finetuning_tpu/ops/flash_attention.py:"
+    gn_replaces = "text_to_video_finetuning_tpu/ops/groupnorm.py:"
     k1 = k1_timed["slice"]
-    print(json.dumps({"kernels": [
+    k1_paths = {"serving": serving_launches, **launches("K1")}
+    records = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": source + "flash_attn_fwd.cu", "replaces": replaces + "63",
-         "launches": serving_launches + train_launches["K1"],
-         "launches_by_path": {"serving": serving_launches,
-                              "training": train_launches["K1"]},
+         "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
          **k1, "shape": "B=32 S=1024 H=5 D=64 bf16 (serving)",
          "train_shape": k1_timed["train"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda",
          "source": source + "flash_attn_bwd.cu", "replaces": replaces + "154",
-         "launches": train_launches["K2"], **bwd["K2"],
+         "launches": sum(launches("K2").values()),
+         "launches_by_path": launches("K2"), **bwd["K2"],
          "shape": "B=16 S=1024 H=5 D=64 bf16 (training)"},
         {"name": "flash_attn_bwd_dq", "route": "cuda",
          "source": source + "flash_attn_bwd.cu", "replaces": replaces + "196",
-         "launches": train_launches["K3"], **bwd["K3"],
+         "launches": sum(launches("K3").values()),
+         "launches_by_path": launches("K3"), **bwd["K3"],
          "shape": "B=16 S=1024 H=5 D=64 bf16 (training)"},
-    ]}))
+    ]
+    for k, name, line in (("K4", "group_norm_silu_fwd", "44"),
+                          ("K5", "group_norm_silu_bwd", "70")):
+        records.append({
+            "name": name, "route": "cuda",
+            "source": source + "groupnorm_silu.cu",
+            "replaces": gn_replaces + line,
+            "launches": sum(launches(k).values()),
+            "launches_by_path": launches(k), **gn_timed[k],
+            "shape": "N=16 C=960 H=W=32 G=32 bf16 (256 px training)"})
+    for rec in records:
+        if rec["launches"] == 0:
+            fail(f"{rec['name']} was never launched on the main path")
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions: K1 (flash-attention forward) and K2 / K3 (its backward,
-dK/dV and dQ).  Every test here needs an NVIDIA GPU (marked `gpu`) and
-skips elsewhere.  The file imports torch only, so it runs on a machine
+PyTorch versions: K1 (flash-attention forward), K2 / K3 (its backward,
+dK/dV and dQ), K4 / K5 (fused GroupNorm+SiLU forward and backward).  Every
+test here needs an NVIDIA GPU (marked `gpu`) and skips elsewhere.  The file imports torch only, so it runs on a machine
 without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py -q
@@ -13,12 +13,17 @@ path's shapes, within 1.5x the plain bf16 backward's error against the fp32
 plain gradients.  At 16 keys (temporal attention, which `auto` keeps on the
 plain path) the bf16 P and dS fed to the tensor cores weigh more, and the
 kernel's error reaches about 2x the plain backward's.
+
+K4/K5: fp32 max |d| <= 1e-4 against the plain pair; bf16 errors against
+the fp32 plain result within 1.5x the plain bf16 version's (plus 1e-6 for
+the outputs bf16 rounds to the same value).
 """
 
 import pytest
 import torch
 
 from text_to_video_finetuning_tpu_torch.ops import flash_attention as fa
+from text_to_video_finetuning_tpu_torch.ops import groupnorm as gn
 
 pytestmark = pytest.mark.gpu
 
@@ -160,4 +165,110 @@ def test_flash_autograd_matches_plain_on_the_card(cuda, dtype):
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for got, t in zip(ours, (qf, kf, vf)):
         assert (got - t.grad).abs().max().item() <= \
+            tol * max(1.0, t.grad.abs().max().item())
+
+
+# (label, x shape NCHW, groups): ragged slabs, G = 4 / 8 / 32, 3-D spatial
+# (the temporal layout) and the 256 px step's widest concat
+GN_SHAPES = [
+    ("ragged_7x5", (1, 32, 7, 5), 4),
+    ("g8", (3, 32, 8, 8), 8),
+    ("g32", (2, 64, 16, 16), 32),
+    ("odd_channels_g8", (2, 24, 9, 11), 8),
+    ("3d_spatial", (2, 64, 3, 4, 5), 32),
+    ("concat_960", (2, 960, 32, 32), 32),
+]
+
+
+def _gn_inputs(g, shape):
+    x = torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3
+    c = shape[1]
+    w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    b = 0.1 * torch.randn(c, device="cuda", generator=g)
+    return x, w, b
+
+
+def _worst(got, ref):
+    return max((a.float() - r.float()).abs().max().item()
+               for a, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("silu", [True, False], ids=["silu", "no_silu"])
+@pytest.mark.parametrize("label,shape,groups", GN_SHAPES,
+                         ids=[s[0] for s in GN_SHAPES])
+def test_groupnorm_kernels_match_plain(cuda, label, shape, groups, silu):
+    x, w, b = _gn_inputs(cuda, shape)
+    ref = gn.group_norm_silu_reference(x, w, b, groups, 1e-5, silu)
+    before = (gn.fwd_launch_count, gn.bwd_launch_count)
+    got = gn.group_norm_silu_fwd_cuda(x, w, b, groups, 1e-5, silu)
+    dy = torch.cos(ref[0])
+    bref = gn.group_norm_silu_bwd_reference(x, w, b, ref[1], ref[2], dy,
+                                            groups, silu)
+    bgot = gn.group_norm_silu_bwd_cuda(x, w, b, ref[1], ref[2], dy, groups,
+                                       silu)
+    torch.cuda.synchronize()
+    assert (gn.fwd_launch_count, gn.bwd_launch_count) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert _worst(got, ref) <= 1e-4
+    assert _worst(bgot, bref) <= 1e-4 * max(1.0, bref[1].abs().max().item())
+    # bf16 x, dy and parameters: kernel vs plain, both against fp32 plain
+    x16, w16, b16, dy16 = (t.bfloat16() for t in (x, w, b, dy))
+    y16, m16, r16 = gn.group_norm_silu_fwd_cuda(x16, w16, b16, groups, 1e-5,
+                                                silu)
+    p16 = gn.group_norm_silu_reference(x16, w16, b16, groups, 1e-5, silu)
+    assert y16.dtype == torch.bfloat16
+    assert _worst([y16], [ref[0]]) <= 1.5 * _worst([p16[0]], [ref[0]]) + 1e-6
+    dx16 = gn.group_norm_silu_bwd_cuda(x16, w16, b16, m16, r16, dy16,
+                                       groups, silu)[0]
+    pdx16 = gn.group_norm_silu_bwd_reference(x16, w16, b16, p16[1], p16[2],
+                                             dy16, groups, silu)[0]
+    assert dx16.dtype == torch.bfloat16
+    assert _worst([dx16], [bref[0]]) <= \
+        1.5 * _worst([pdx16], [bref[0]]) + 1e-6
+
+
+def test_groupnorm_kernel_takes_fp32_parameters_with_bf16_x(cuda):
+    x, w, b = _gn_inputs(cuda, (2, 64, 8, 8))
+    y, _, _ = gn.group_norm_silu_fwd_cuda(x.bfloat16(), w, b, 32)
+    ref = gn.group_norm_silu_reference(x.bfloat16(), w, b, 32)[0]
+    assert y.dtype == torch.bfloat16
+    assert _worst([y], [ref]) <= 1e-2
+
+
+def test_groupnorm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, w, b = _gn_inputs(cuda, (2, 64, 8, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gn.group_norm_silu_fwd_cuda(x.cpu(), w.cpu(), b.cpu(), 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm_silu_fwd_cuda(x.transpose(2, 3), w, b, 32)
+    with pytest.raises(ValueError, match="groups"):
+        gn.group_norm_silu_fwd_cuda(x, w, b, 24)
+    with pytest.raises(TypeError):
+        gn.group_norm_silu_fwd_cuda(x.double(), w, b, 32)
+    y, mean, rstd = gn.group_norm_silu_fwd_cuda(x, w, b, 32)
+    with pytest.raises(ValueError, match="dy"):
+        gn.group_norm_silu_bwd_cuda(x, w, b, mean, rstd, y.transpose(2, 3),
+                                    32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gn.group_norm_silu_bwd_cuda(x.cpu(), w.cpu(), b.cpu(), mean.cpu(),
+                                    rstd.cpu(), y.cpu(), 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_autograd_matches_plain_on_the_card(cuda, dtype):
+    """group_norm_silu's autograd path (K4, then K5 with dgamma/dbeta)
+    against autograd through F.group_norm + F.silu in fp32."""
+    import torch.nn.functional as F
+
+    x, w, b = _gn_inputs(cuda, (4, 64, 12, 10))
+    xs, ws, bs = (t.to(dtype).requires_grad_() for t in (x, w, b))
+    counts = (gn.fwd_launch_count, gn.bwd_launch_count)
+    torch.sin(gn.group_norm_silu(xs, ws, bs, 32).float()).sum().backward()
+    assert (gn.fwd_launch_count, gn.bwd_launch_count) == \
+        (counts[0] + 1, counts[1] + 1)
+    xf, wf, bf = (t.detach().float().requires_grad_() for t in (xs, ws, bs))
+    torch.sin(F.silu(F.group_norm(xf, 32, wf, bf, 1e-5))).sum().backward()
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for got, t in zip((xs, ws, bs), (xf, wf, bf)):
+        assert (got.grad.float() - t.grad).abs().max().item() <= \
             tol * max(1.0, t.grad.abs().max().item())

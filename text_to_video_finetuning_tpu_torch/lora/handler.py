@@ -28,7 +28,7 @@ CLONEOFSIMO_SEARCH = ("linear", "conv2d", "conv3d")
 
 class LoraHandler:
     """The cloneofsimo flavour on the UNet (stable_lora and text-encoder
-    LoRA wait for ROADMAP Queue 1 item 2)."""
+    LoRA wait for ROADMAP Queue 1 item 1)."""
 
     def __init__(self, use_unet_lora: bool = False,
                  unet_replace_modules: Sequence[str] = (
@@ -70,14 +70,14 @@ class LoraHandler:
             return None, [], []
         if model_kind != "unet":
             raise NotImplementedError(
-                "text-encoder LoRA is not ported yet: ROADMAP Queue 1 item 2")
+                "text-encoder LoRA is not ported yet: ROADMAP Queue 1 item 1")
         sites = self.unet_sites(model)
         lora_file = self.get_lora_file_path(lora_path, model_kind)
         if lora_file is not None:
             if not lora_file.endswith(".pt"):
                 raise NotImplementedError(
                     ".safetensors LoRA files are not ported yet: ROADMAP "
-                    "Queue 1 item 5")
+                    "Queue 1 item 4")
             device = next(model.parameters()).device
             lora_params = {
                 name: {leaf: t.requires_grad_() for leaf, t in entry.items()}

@@ -11,7 +11,9 @@ Tensors are (batch, seq, channels).  Dropout layers sit where the diffusers
 state-dict indices need them, at rate 0 as the JAX UNet builds them.  Every
 Linear is a `LoraLinear` (models/lora_layers.py).  The attention backend is
 an attribute each `CrossAttention` reads per call
-(`UNet3DConditionModel.set_attention_backend`).
+(`UNet3DConditionModel.set_attention_backend`).  The attention core is the
+`attn_out` region of the remat policies, `to_out.0` and the FF's `net.2`
+are `dense_out` regions (models/remat.py).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 
 from ..ops.attention import AttentionBackend, dot_product_attention
 from .lora_layers import LoraLinear
+from .remat import ATTN_TAG, DENSE_TAG, tagged
 
 
 class CrossAttention(nn.Module):
@@ -52,10 +55,13 @@ class CrossAttention(nn.Module):
         q = self.to_q(hidden_states).view(b, sq, self.heads, self.dim_head)
         k = self.to_k(context).view(b, sk, self.heads, self.dim_head)
         v = self.to_v(context).view(b, sk, self.heads, self.dim_head)
-        out = dot_product_attention(q, k, v, scale=self.dim_head ** -0.5,
-                                    backend=self.attention_backend)
+        with tagged(ATTN_TAG):
+            out = dot_product_attention(q, k, v, scale=self.dim_head ** -0.5,
+                                        backend=self.attention_backend)
         out = out.reshape(b, sq, self.heads * self.dim_head)
-        return self.to_out[1](self.to_out[0](out))
+        with tagged(DENSE_TAG):
+            out = self.to_out[0](out)
+        return self.to_out[1](out)
 
 
 class GEGLU(nn.Module):
@@ -76,9 +82,9 @@ class FeedForward(nn.Module):
                                   LoraLinear(inner_dim, dim)])
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        for layer in self.net:
-            hidden_states = layer(hidden_states)
-        return hidden_states
+        hidden_states = self.net[1](self.net[0](hidden_states))
+        with tagged(DENSE_TAG):
+            return self.net[2](hidden_states)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -6,7 +6,11 @@ diffusers `ResnetBlock2D`, `TemporalConvLayer`, `Downsample2D`,
 (models/lora_layers.py).  Spatial tensors are (B*F, C, H, W); the temporal
 conv unfolds frames to (B, C, F, H, W) and runs (3,1,1) 3D convs over them
 (ModelScope's temporal conv, zero-initialised last conv => identity at
-init).
+init).  `FusedGroupNormSiLU` runs a ResnetBlock2D's GroupNorm -> SiLU
+through K4/K5 (ops/groupnorm.py) with `fused_groupnorm`; the temporal
+convs' GroupNorms stay on `nn.GroupNorm`, as in the JAX package.  The conv
+outputs are the `conv_out_act` regions of the remat policies
+(models/remat.py).
 """
 
 from __future__ import annotations
@@ -17,34 +21,58 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.groupnorm import group_norm_silu
 from .lora_layers import LoraConv2d, LoraConv3d, LoraLinear
+from .remat import CONV_TAG, tagged
+
+
+class FusedGroupNormSiLU(nn.GroupNorm):
+    """GroupNorm + SiLU in one kernel each way (K4 forward, K5 backward;
+    the plain pair on CPU tensors).  Same parameters and state-dict names
+    as `nn.GroupNorm` (`weight`, `bias`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_silu(x, self.weight, self.bias, self.num_groups,
+                               self.eps, apply_silu=True)
 
 
 class ResnetBlock2D(nn.Module):
     """GroupNorm/SiLU/conv x2 with timestep-bias injection and skip conv
-    (pre_norm, time_embedding_norm='default', non_linearity='silu')."""
+    (pre_norm, time_embedding_norm='default', non_linearity='silu').
+    `fused_groupnorm` makes norm1/norm2 `FusedGroupNormSiLU`s, which apply
+    the SiLU themselves."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  temb_channels: Optional[int] = 512, groups: int = 32,
-                 eps: float = 1e-6, output_scale_factor: float = 1.0):
+                 eps: float = 1e-6, output_scale_factor: float = 1.0,
+                 fused_groupnorm: bool = False):
         super().__init__()
         out_channels = out_channels or in_channels
         self.output_scale_factor = output_scale_factor
-        self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
+        self.fused_groupnorm = fused_groupnorm
+        norm = FusedGroupNormSiLU if fused_groupnorm else nn.GroupNorm
+        self.norm1 = norm(groups, in_channels, eps=eps)
         self.conv1 = LoraConv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = (LoraLinear(temb_channels, out_channels)
                               if temb_channels else None)
-        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
+        self.norm2 = norm(groups, out_channels, eps=eps)
         self.conv2 = LoraConv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (LoraConv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
+    def _norm_silu(self, norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+        return norm(x) if self.fused_groupnorm else F.silu(norm(x))
+
     def forward(self, hidden_states: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(hidden_states)))
+        h = self._norm_silu(self.norm1, hidden_states)
+        with tagged(CONV_TAG):
+            h = self.conv1(h)
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self._norm_silu(self.norm2, h)
+        with tagged(CONV_TAG):
+            h = self.conv2(h)
         residual = (hidden_states if self.conv_shortcut is None
                     else self.conv_shortcut(hidden_states))
         return (residual + h) / self.output_scale_factor
@@ -82,7 +110,13 @@ class TemporalConvLayer(nn.Module):
         h = hidden_states.reshape(bf // num_frames, num_frames, channels,
                                   height, width).permute(0, 2, 1, 3, 4)
         identity = h
-        h = self.conv4(self.conv3(self.conv2(self.conv1(h)))) + identity
+        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
+            *act, conv3d = conv
+            for layer in act:
+                h = layer(h)
+            with tagged(CONV_TAG):
+                h = conv3d(h)
+        h = h + identity
         return h.permute(0, 2, 1, 3, 4).reshape(bf, channels, height, width)
 
 

@@ -9,7 +9,8 @@ text_to_video_finetuning_tpu/models/transformers.py).
   text states).
 
 Layout: spatial tensors are (B*F, C, H, W), frames folded into the batch.
-Both GroupNorms use eps 1e-6.
+Both GroupNorms use eps 1e-6.  `proj_in` / `proj_out` are `dense_out`
+regions of the remat policies (models/remat.py).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from torch import nn
 
 from .attention import BasicTransformerBlock
 from .lora_layers import LoraLinear
+from .remat import DENSE_TAG, tagged
 
 
 class Transformer2DModel(nn.Module):
@@ -43,10 +45,12 @@ class Transformer2DModel(nn.Module):
         residual = hidden_states
         h = self.norm(hidden_states)
         h = h.permute(0, 2, 3, 1).reshape(bf, height * width, channels)
-        h = self.proj_in(h)
+        with tagged(DENSE_TAG):
+            h = self.proj_in(h)
         for block in self.transformer_blocks:
             h = block(h, encoder_hidden_states)
-        h = self.proj_out(h)
+        with tagged(DENSE_TAG):
+            h = self.proj_out(h)
         h = h.reshape(bf, height, width, channels).permute(0, 3, 1, 2)
         return h + residual
 
@@ -78,10 +82,12 @@ class TransformerTemporalModel(nn.Module):
         # (B, C, F, H, W) -> (B*H*W, F, C)
         h = h.permute(0, 3, 4, 2, 1).reshape(batch * height * width,
                                              num_frames, channels)
-        h = self.proj_in(h)
+        with tagged(DENSE_TAG):
+            h = self.proj_in(h)
         for block in self.transformer_blocks:
             h = block(h)
-        h = self.proj_out(h)
+        with tagged(DENSE_TAG):
+            h = self.proj_out(h)
         # (B*H*W, F, C) -> (B*F, C, H, W)
         h = h.reshape(batch, height, width, num_frames, channels)
         h = h.permute(0, 3, 4, 1, 2).reshape(bf, channels, height, width)

@@ -9,7 +9,10 @@ embeddings repeated per frame.
 Public API keeps the reference layout: sample (B, C, F, H, W), timesteps
 (B,) or scalar, encoder_hidden_states (B, S, D) -> (B, C, F, H, W).
 Internally activations are NCHW with frames folded into the batch.
-State-dict keys are the diffusers names.
+State-dict keys are the diffusers names.  `fused_groupnorm` runs every
+ResnetBlock2D's GroupNorm -> SiLU through K4/K5 (the state dict does not
+change); `set_gradient_checkpointing` takes a remat policy with an optional
+`+skiplow` suffix (models/remat.py).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..ops.attention import AttentionBackend
 from .attention import CrossAttention
 from .embeddings import TimestepEmbedding, get_timestep_embedding
 from .lora_layers import LoraConv2d
+from .remat import parse_remat_policy
 from .transformers import TransformerTemporalModel
 from .unet3d_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D,
                             DownBlock3D, UNetMidBlock3DCrossAttn, UpBlock3D)
@@ -78,7 +82,8 @@ def micro_unet_config(**overrides) -> UNet3DConfig:
 
 
 class UNet3DConditionModel(nn.Module):
-    def __init__(self, config: UNet3DConfig = UNET3D_MS_1_7B_CONFIG):
+    def __init__(self, config: UNet3DConfig = UNET3D_MS_1_7B_CONFIG,
+                 fused_groupnorm: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -102,12 +107,12 @@ class UNet3DConditionModel(nn.Module):
                     input_channel, output_channel, time_embed_dim,
                     cfg.layers_per_block, cfg.norm_eps, cfg.norm_num_groups,
                     cfg.attention_head_dim, cfg.cross_attention_dim,
-                    cfg.downsample_padding, add_downsample))
+                    cfg.downsample_padding, add_downsample, fused_groupnorm))
             elif block_type == "DownBlock3D":
                 down_blocks.append(DownBlock3D(
                     input_channel, output_channel, time_embed_dim,
                     cfg.layers_per_block, cfg.norm_eps, cfg.norm_num_groups,
-                    cfg.downsample_padding, add_downsample))
+                    cfg.downsample_padding, add_downsample, fused_groupnorm))
             else:
                 raise ValueError(f"unknown down block {block_type}")
         self.down_blocks = nn.ModuleList(down_blocks)
@@ -125,12 +130,12 @@ class UNet3DConditionModel(nn.Module):
                     input_channel, output_channel, prev_output_channel,
                     time_embed_dim, cfg.layers_per_block + 1, cfg.norm_eps,
                     cfg.norm_num_groups, cfg.attention_head_dim,
-                    cfg.cross_attention_dim, add_upsample))
+                    cfg.cross_attention_dim, add_upsample, fused_groupnorm))
             elif block_type == "UpBlock3D":
                 up_blocks.append(UpBlock3D(
                     input_channel, output_channel, prev_output_channel,
                     time_embed_dim, cfg.layers_per_block + 1, cfg.norm_eps,
-                    cfg.norm_num_groups, add_upsample))
+                    cfg.norm_num_groups, add_upsample, fused_groupnorm))
             else:
                 raise ValueError(f"unknown up block {block_type}")
         self.up_blocks = nn.ModuleList(up_blocks)
@@ -139,7 +144,8 @@ class UNet3DConditionModel(nn.Module):
         self.mid_block = UNetMidBlock3DCrossAttn(
             cfg.block_out_channels[-1], time_embed_dim, cfg.norm_eps,
             cfg.norm_num_groups, cfg.attention_head_dim,
-            cfg.cross_attention_dim, cfg.mid_block_scale_factor)
+            cfg.cross_attention_dim, cfg.mid_block_scale_factor,
+            fused_groupnorm)
 
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, ch0,
                                           eps=cfg.norm_eps)
@@ -153,12 +159,24 @@ class UNet3DConditionModel(nn.Module):
             if isinstance(module, CrossAttention):
                 module.attention_backend = backend
 
-    def set_gradient_checkpointing(self, enable: bool = True):
+    def set_gradient_checkpointing(self, enable: bool = True,
+                                   remat_policy: str = "nothing"):
         """Checkpoint every resnet, temp_conv, attn and temp_attn unit of the
-        down, mid and up blocks, saving nothing inside a unit (the JAX
-        package's `gradient_checkpointing` with its "nothing" policy)."""
-        for block in (*self.down_blocks, self.mid_block, *self.up_blocks):
-            block.gradient_checkpointing = enable
+        down, mid and up blocks under `remat_policy` (the JAX package's
+        `gradient_checkpointing` and `remat_policy`; "nothing" saves
+        nothing inside a unit).  A `+skiplow` / `+skiplowN` suffix leaves
+        the levels >= max(n_levels - N, 1) and the mid block
+        uncheckpointed.  Unknown policies raise."""
+        policy, skip = parse_remat_policy(remat_policy)
+        n_levels = len(self.config.block_out_channels)
+        first_skipped = n_levels if skip is None else max(n_levels - skip, 1)
+        levels = [(block, i) for i, block in enumerate(self.down_blocks)]
+        levels.append((self.mid_block, n_levels - 1))
+        levels += [(block, n_levels - 1 - i)
+                   for i, block in enumerate(self.up_blocks)]
+        for block, level in levels:
+            block.gradient_checkpointing = enable and level < first_skipped
+            block.remat_policy = policy
 
     def forward(self, sample: torch.Tensor,
                 timesteps: Union[torch.Tensor, float, int],

@@ -8,9 +8,9 @@ Three CUDA kernels replace the Pallas TPU kernels of
 * K2 and K3, `csrc/flash_attn_bwd.cu`: dK/dV (`_bwd_dkv_kernel`) and dQ
   (`_bwd_dq_kernel`).
 
-`build()` compiles every `csrc/*.cu` with nvcc for sm_90a, one process per
-source, all at once, into shared libraries under `_build/`; they are called
-through plain C entry points with ctypes, on PyTorch's current stream.
+`ops/kernel_build.py` compiles the sources with nvcc for sm_90a into shared
+libraries; they are called through plain C entry points with ctypes, on
+PyTorch's current stream.
 
 * `flash_attention_reference(q, k, v, scale) -> (o, lse)` and
   `flash_attention_bwd_reference(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`:
@@ -20,9 +20,13 @@ through plain C entry points with ctypes, on PyTorch's current stream.
   then K2 and K3): the kernels, each beside its plain `*_reference`.  They
   raise on anything they do not take (CPU tensors included); they never
   fall back.
-* `FlashAttentionFunction` / `flash_attention(q, k, v, scale) -> o`: the
-  autograd function.  CPU tensors take the plain forward and backward, CUDA
-  tensors the kernels.
+* `torch.ops.t2v.flash_attention_fwd(q, k, v, scale) -> (o, lse)`: K1 as a
+  custom operator, with its backward (K2 + K3) registered as its autograd
+  formula.  CPU tensors take the plain forward and backward, CUDA tensors
+  the kernels.  Being a dispatched operator, its outputs are visible to
+  selective checkpointing (`models/remat.py`), which can save them so the
+  checkpoint recompute does not launch K1 again.
+* `flash_attention(q, k, v, scale) -> o`: the differentiable entry point.
 
 All tensors are BSHD: q (B, Sq, H, D), k/v (B, Sk, H, D); lse is (B, H, Sq)
 float32.  `delta = rowsum(O * dO)` is computed in PyTorch outside K2/K3, as
@@ -32,21 +36,13 @@ the TPU version computes it outside its kernels.
 from __future__ import annotations
 
 import ctypes
-import glob
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from typing import Dict, Optional, Tuple
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from . import kernel_build
+
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -60,62 +56,11 @@ _libs: Optional[Dict[str, ctypes.CDLL]] = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found: the flash-attention kernels are "
-                       "built from source and need the CUDA toolkit")
-
-
-def sources() -> Dict[str, str]:
-    """Every kernel source of the package, by name (file stem)."""
-    return {os.path.splitext(os.path.basename(p))[0]: p
-            for p in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))}
-
-
-def _lib_path(name: str, source: str) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
-
-
-def build(force: bool = False) -> Dict[str, str]:
-    """Compile every `csrc/*.cu` into `_build/` (each keyed by its source's
-    hash), one nvcc process per source, all started together.  Returns
-    {name: library path}; a failed build raises with nvcc's output."""
-    paths = {name: _lib_path(name, src) for name, src in sources().items()}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name, src in sources().items():
-        if os.path.exists(paths[name]) and not force:
-            continue
-        tmp = f"{paths[name]}.{os.getpid()}.tmp"
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    failures = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed on {name}.cu ({proc.returncode}):"
-                            f"\n{out}")
-        else:
-            os.replace(tmp, paths[name])
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return paths
-
-
 def _load() -> Dict[str, ctypes.CDLL]:
     global _libs
     with _lib_lock:
         if _libs is None:
-            paths = build()
+            paths = kernel_build.build()
             fwd = ctypes.CDLL(paths["flash_attn_fwd"])
             bwd = ctypes.CDLL(paths["flash_attn_bwd"])
             p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -352,33 +297,45 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Flash attention with its own backward.  CPU tensors take the plain
-    forward and backward, CUDA tensors K1 and K2 + K3."""
+@torch.library.custom_op("t2v::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as an operator: (o, lse).  CPU tensors take the plain version,
+    CUDA tensors the kernel (which raises on what it does not take)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    return flash_attention_cuda(q, k, v, scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_reference(q, k, v, scale)
-        else:
-            o, lse = flash_attention_cuda(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
-        ctx.mark_non_differentiable(lse)
-        return o, lse
 
-    @staticmethod
-    def backward(ctx, grad_o, grad_lse):
-        q, k, v, o, lse = ctx.saved_tensors
-        if grad_o.device.type == "cpu":
-            grads = flash_attention_bwd_reference(q, k, v, o, lse, grad_o,
-                                                  ctx.scale)
-        else:
-            if grad_o.stride(-1) != 1:
-                grad_o = grad_o.contiguous()
-            grads = flash_attention_bwd_cuda(q, k, v, o, lse, grad_o,
-                                             ctx.scale)
-        return (*grads, None)
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, scale):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.scale = scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, grad_o, grad_lse):
+    q, k, v, o, lse = ctx.saved_tensors
+    if grad_o.device.type == "cpu":
+        grads = flash_attention_bwd_reference(q, k, v, o, lse, grad_o,
+                                              ctx.scale)
+    else:
+        if grad_o.stride(-1) != 1:
+            grad_o = grad_o.contiguous()
+        grads = flash_attention_bwd_cuda(q, k, v, o, lse, grad_o, ctx.scale)
+    return (*grads, None)
+
+
+flash_attention_fwd.register_autograd(_flash_backward,
+                                      setup_context=_flash_setup_context)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -389,4 +346,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return FlashAttentionFunction.apply(q, k, v, scale)[0]
+    return flash_attention_fwd(q, k, v, float(scale))[0]

@@ -1,0 +1,80 @@
+"""Builds the port's hand-written CUDA kernels.
+
+`build()` compiles every `csrc/*.cu` with nvcc for sm_90a, one process per
+source, all started together, into shared libraries under `_build/` (each
+keyed by a hash of its source and the flags).  Every library exposes plain C
+entry points; each ops module loads its own with ctypes and calls it on
+PyTorch's current stream.  Nothing is built at import: the first kernel call
+builds, and `chip_smoke.py` builds everything up front.
+"""
+
+from __future__ import annotations
+
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_build_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the port's kernels are built from "
+                       "source and need the CUDA toolkit")
+
+
+def sources() -> Dict[str, str]:
+    """Every kernel source of the package, by name (file stem)."""
+    return {os.path.splitext(os.path.basename(p))[0]: p
+            for p in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))}
+
+
+def _lib_path(name: str, source: str) -> str:
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build(force: bool = False) -> Dict[str, str]:
+    """Compile every `csrc/*.cu` that is not built yet (all of them with
+    `force`), one nvcc process per source, all started together.  Returns
+    {name: library path}; a failed build raises with nvcc's output."""
+    with _build_lock:
+        paths = {name: _lib_path(name, src)
+                 for name, src in sources().items()}
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for name, src in sources().items():
+            if os.path.exists(paths[name]) and not force:
+                continue
+            tmp = f"{paths[name]}.{os.getpid()}.tmp"
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failures = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed on {name}.cu "
+                                f"({proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, paths[name])
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        return paths

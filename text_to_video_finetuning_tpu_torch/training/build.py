@@ -7,10 +7,12 @@ shape (1, 4, 16, 32, 32) (256x256, 16 frames); a cloneofsimo LoRA of rank 16
 in branch form on Transformer2DModel, TransformerTemporalModel and
 ResnetBlock2D, fp32; DDPM epsilon targets and the two-pass loss; AdamW at a
 constant 5e-6 with global-norm clipping at 1.0; per-unit gradient
-checkpointing.  Unlike the JAX `build()`, whose parameters are all zero, the
-weights are drawn from `seed` in the JAX package's init families
-(models/init.py), and the cached latents are N(0, 1) draws, so activations
-are not degenerate.
+checkpointing under `remat_policy` (a models/remat.py policy name, with an
+optional `+skiplow` / `+skiplowN` suffix); `fused_groupnorm` runs the
+ResnetBlock2D GroupNorm -> SiLU chains through K4/K5.  Unlike the JAX
+`build()`, whose parameters are all zero, the weights are drawn from
+`seed` in the JAX package's init families (models/init.py), and the cached
+latents are N(0, 1) draws, so activations are not degenerate.
 
 Options of the JAX `build()` that are not ported yet raise
 `NotImplementedError` naming their ROADMAP item.
@@ -56,30 +58,26 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
           ) -> Tuple[object, TrainState, dict, TrainStepConfig]:
     """-> (train_step, state, batch, step config); `train_step(state,
     batch)` returns (state, metrics)."""
-    if remat_policy != "nothing":
-        _refuse(f"remat policy {remat_policy!r} (selective checkpointing, "
-                "+skiplow)", 2)
-    if fused_groupnorm:
-        _refuse("fused_groupnorm (K4/K5)", 1)
     if text_lora:
-        _refuse("text-encoder LoRA (the hybrid config)", 2)
+        _refuse("text-encoder LoRA (the hybrid config)", 1)
     if split:
-        _refuse("the split-compile train step", 2)
+        _refuse("the split-compile train step", 1)
     if skip_nonfinite:
-        _refuse("skip_nonfinite (apply_if_finite, with the engine)", 3)
+        _refuse("skip_nonfinite (apply_if_finite, with the engine)", 2)
     if raw_latents:
-        _refuse("raw latents (the in-step VAE encode)", 2)
+        _refuse("raw latents (the in-step VAE encode)", 1)
     if lora_version != "cloneofsimo":
-        _refuse(f"LoRA version {lora_version!r} (stable_lora)", 2)
+        _refuse(f"LoRA version {lora_version!r} (stable_lora)", 1)
     device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
-        unet = init_weights_(UNet3DConditionModel(unet_config), g)
+        unet = init_weights_(UNet3DConditionModel(
+            unet_config, fused_groupnorm=fused_groupnorm), g)
         clip = init_weights_(CLIPTextModel(clip_config), g)
     # frozen models in the compute dtype (the reference casts them to half)
     for model in (unet, clip):
         model.to(dtype).requires_grad_(False)
-    unet.set_gradient_checkpointing(grad_ckpt)
+    unet.set_gradient_checkpointing(grad_ckpt, remat_policy)
     unet.set_attention_backend(backend)
 
     handler = LoraHandler(use_unet_lora=True,

@@ -187,7 +187,7 @@ def get_optimizer(learning_rate_schedule: Union[Schedule, float],
     'adam_weight_decay', 'adam_beta1', 'adam_beta2', 'adam_epsilon'}."""
     if use_8bit_adam:
         raise NotImplementedError(
-            "8-bit Adam is not ported yet: ROADMAP Queue 1 item 2")
+            "8-bit Adam is not ported yet: ROADMAP Queue 1 item 1")
     schedule = (learning_rate_schedule if callable(learning_rate_schedule)
                 else (lambda count, lr=float(learning_rate_schedule): lr))
     return ClippedAdamW(schedule, (adam_beta1, adam_beta2),

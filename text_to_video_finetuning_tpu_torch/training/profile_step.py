@@ -1,10 +1,13 @@
 """Where the time of the headline LoRA training step goes, on the card.
 
     python -m text_to_video_finetuning_tpu_torch.training.profile_step \\
-        [--steps 5] [--out profiles/train_step]
+        [--steps 5] [--out profiles/train_step] [--fused-groupnorm] \\
+        [--remat-policy conv_attn_dense+skiplow3] [--latent-hw 40 72] \\
+        [--frames 16]
 
-Builds `training.build.build()` at full width (ms-1.7b, 256x256x16, rank-16
-LoRA, two-pass loss, checkpointing), takes two warm steps, then:
+Builds `training.build.build()` at full width (ms-1.7b, rank-16 LoRA,
+two-pass loss, checkpointing; by default 256x256x16 latents, the "nothing"
+policy and the unfused GroupNorm), takes two warm steps, then:
 
 1. times `--steps` whole steps (host clock around work that ends in a
    synchronize) and prints each with its peak memory;
@@ -36,8 +39,9 @@ import torch
 # kernel-name patterns, first match wins
 FAMILIES = [
     ("flash K1/K2/K3", r"flash_(fwd|bwd)"),
+    ("GroupNorm K4/K5", r"gn_silu_(fwd|bwd)"),
     ("convolution", r"conv|cudnn|implicit_gemm|xmma_fprop|dgrad|wgrad"),
-    ("matmul", r"gemm|cutlass|sm90_xmma|ampere|magma|splitK"),
+    ("matmul", r"gemm|cutlass|sm90_xmma|ampere|magma|splitK|nvjet"),
     ("normalization", r"norm|welford"),
     ("softmax", r"softmax"),
     ("optimizer", r"adam|foreach|multi_tensor"),
@@ -66,6 +70,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--out", default="profiles/train_step")
+    parser.add_argument("--fused-groupnorm", action="store_true",
+                        help="ResnetBlock2D GroupNorm -> SiLU on K4/K5")
+    parser.add_argument("--remat-policy", default="nothing",
+                        help="a models/remat.py policy, e.g. "
+                             "conv_attn_dense+skiplow3")
+    parser.add_argument("--latent-hw", type=int, nargs=2, default=(32, 32),
+                        metavar=("H", "W"))
+    parser.add_argument("--frames", type=int, default=16)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
@@ -80,7 +92,13 @@ def main(argv=None) -> int:
     from .optim import leaves
     from .train_step import make_loss_fn
 
-    step, state, batch, cfg = build(grad_ckpt=True, backend="auto")
+    step, state, batch, cfg = build(
+        grad_ckpt=True, backend="auto", remat_policy=args.remat_policy,
+        fused_groupnorm=args.fused_groupnorm, frames=args.frames,
+        latent_hw=tuple(args.latent_hw))
+    print(f"build: remat_policy {args.remat_policy}, fused_groupnorm "
+          f"{args.fused_groupnorm}, latents "
+          f"{tuple(batch['pixel_values'].shape)}")
     for _ in range(2):
         state, _ = step(state, batch)
 

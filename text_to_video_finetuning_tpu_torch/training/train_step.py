@@ -89,7 +89,7 @@ def make_loss_fn(cfg: TrainStepConfig):
                 timesteps: Optional[torch.Tensor] = None):
         if "text_lora" in trainable:
             raise NotImplementedError(
-                "text-encoder LoRA is not ported yet: ROADMAP Queue 1 item 2")
+                "text-encoder LoRA is not ported yet: ROADMAP Queue 1 item 1")
         train_mode = not cfg.eval_train
         cfg.unet.train(train_mode)
         cfg.text_encoder.train(train_mode)
