@@ -11,23 +11,27 @@ from a seed).
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA device must be present; prints its name / power limit;
   2. build every kernel from csrc/ with nvcc (sm_90a), one process each;
-  3. K1 against its plain version on four shapes, fp32 and bf16; K1, its
-     plain version and SDPA's forward timed at the serving and training
+  3. K1 against its plain version on phase 3's shapes, the training shape
+     and the 576x320 step's (2,880 tokens): fp32 on the `wmma` route, bf16
+     on both routes (`sm90` by default); K1 on both routes, its plain
+     version and SDPA's forward timed at the serving, training and 576x320
      shapes;
   4. the serving path: ms-1.7b UNet + 1024-wide CLIP + SD VAE written as a
      pipeline directory, loaded with `initialize_pipeline`, three requests
      answered by `generate` on the one warm pipeline, with the K1 launch
-     count checked per request;
+     count checked per request, every launch on the `sm90` route;
   5. K1 in context: request (a)'s first full-width UNet forward, flash vs
      plain, with fp32 and with bf16 weights;
-  6. K2 and K3 against the plain backward on phase 3's shapes and the
-     training shape, fp32 and bf16, dO = cos(o); timed beside the plain
-     backward and SDPA's backward (forward + backward minus forward);
+  6. K2 and K3 against the plain backward on phase 3's shapes, fp32 and
+     bf16 (K3 on both routes in bf16), dO = cos(o); K2, K3 on both routes,
+     the plain versions and SDPA's backward (forward + backward minus
+     forward) timed at the training and 576x320 shapes;
   7. the training path: `training.build.build()` (ms-1.7b, rank-16 LoRA,
      256x256x16 cached latents, two-pass loss, checkpointing with the
      "nothing" policy, AdamW), one warm step and four timed steps, with the
      K1-K5 launches checked per step against the counts derived from the
-     model;
+     model and every K1 / K3 launch checked to be on the `sm90` route (as
+     in phases 10-13);
   8. the backward in context: one pass's LoRA gradients at full width, flash
      vs plain attention, with fp32 and with bf16 weights;
   9. K4 and K5 against the plain pair, fp32 and bf16, dy = cos(y), on small
@@ -47,7 +51,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
  13. the 576x320 variant `hires16-fusedgn` (latents 40x72, 16 frames, the
      headline policy, fused GroupNorm): one warm and two timed steps.
 The last two lines are the kernels record and the device record (JSON).
-Timings are smoke timings (CUDA events / host clock), not a benchmark.
+K1 and K3 run on two routes (ops/flash_attention.py::flash_route): `sm90`
+(csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dq_sm90.cu) for bf16 / fp16
+at head_dim 64, `wmma` (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) for
+the rest; the run fails if the main path sends any K1 or K3 launch to
+`wmma`.
+Timings are smoke timings, not a benchmark: kernel times are device time by
+CUDA events with the card kept busy while the host enqueues (`cuda_ms`),
+step and request times host clock.
 """
 
 from __future__ import annotations
@@ -71,10 +82,15 @@ K1_SHAPES = [
     ("unaligned_q", 2, 200, 200, 1, 64),
     ("slice", 32, 1024, 1024, 5, 64),
 ]
-# the training step's spatial self-attention: B*F = 16 frames, 5 heads
+# the training step's spatial self-attention: B*F = 16 frames, 5 heads; and
+# the 576x320 step's (latents 40x72: 2,880 tokens)
 TRAIN_SHAPE = ("train", 16, 1024, 1024, 5, 64)
+HIRES_SHAPE = ("hires", 16, 2880, 2880, 5, 64)
+FLASH_TIMED = ("slice", "train", "hires")
 FP32_TOL = 1e-4         # max |d o| and max |d lse| in fp32
 BF16_TOL = 2e-2         # max |d o| of bf16 against the fp32 plain result
+LSE16_TOL = 1e-3        # max |d lse| of bf16 K1 against the plain lse of the
+                        # same bf16 inputs (fp32 sums in another order)
 BWD_FP32_TOL = 1e-4     # max |d grad| of K2/K3 against the plain backward
 BWD_BF16_EXCESS = 1.5   # bf16 kernel error / bf16 plain error, vs fp32
 BWD_BF16_REL = 3e-2     # bf16 kernel max error / max |fp32 reference|
@@ -111,6 +127,7 @@ GN_OPS_PER_ELEMENT = {"K4": 12, "K5": 30}
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
+SLEEP_CYCLES = 10_000_000   # ~5 ms of SM clock ahead of each timed run
 
 
 def fail(msg: str):
@@ -118,19 +135,37 @@ def fail(msg: str):
 
 
 def cuda_ms(fn, n: int = 10) -> float:
-    """Median over n launches of fn, by CUDA events, after a warm-up."""
+    """Median device time of fn over n runs, by CUDA events, after a
+    warm-up.  Before each run a sleep kernel keeps the card busy while the
+    host enqueues the start event, fn's launches and the end event, so the
+    host's own time (Python, the wrappers, autograd) is not counted: the
+    interval is the card's."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[n // 2]
+
+
+def host_us(fn, n: int = 100) -> float:
+    """Mean host time of one call of fn in microseconds: n calls enqueued
+    back to back (the card runs them behind), then one synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / n
 
 
 def attention_bound(kind: str, b, sq, sk, h, d, dtype):
@@ -159,13 +194,12 @@ def sdpa_inputs(q, k, v):
 
 
 def check_k1(fa):
-    """Phase 3: returns {label: record} for the slice and training shapes,
-    and the bf16 max |d o| at the slice shape.  The launches made here are
-    not the main path's."""
+    """Phase 3: returns {label: record} for the FLASH_TIMED shapes, each
+    with the `sm90` route's time (`ms`) beside the `wmma` route's on the
+    same inputs.  The launches made here are not the main path's."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     timed = {}
-    slice_err = None
-    for label, b, sq, sk, h, d in K1_SHAPES + [TRAIN_SHAPE]:
+    for label, b, sq, sk, h, d in K1_SHAPES + [TRAIN_SHAPE, HIRES_SHAPE]:
         q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=g)
                    for s in (sq, sk, sk))
         scale = d ** -0.5
@@ -174,50 +208,69 @@ def check_k1(fa):
         torch.cuda.synchronize()
         e_o = (o - o_ref).abs().max().item()
         e_lse = (lse - lse_ref).abs().max().item()
-        o16, _ = fa.flash_attention_cuda(q.bfloat16(), k.bfloat16(),
-                                         v.bfloat16(), scale)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        _, lse16_ref = fa.flash_attention_reference(q, k, v, scale)
+        o16, lse16 = fa.flash_attention_cuda(q, k, v, scale)
+        o16w, _ = fa.flash_attention_cuda(q, k, v, scale, route="wmma")
         torch.cuda.synchronize()
         e_16 = (o16.float() - o_ref).abs().max().item()
-        print(f"K1 {label} ({b}x{sq}x{sk}x{h}x{d}): fp32 max|do|={e_o:.3e} "
-              f"max|dlse|={e_lse:.3e}; bf16 max|do|={e_16:.3e}")
-        if not (e_o <= FP32_TOL and e_lse <= FP32_TOL and e_16 < BF16_TOL):
+        e_16w = (o16w.float() - o_ref).abs().max().item()
+        e_lse16 = (lse16 - lse16_ref).abs().max().item()
+        print(f"K1 {label} ({b}x{sq}x{sk}x{h}x{d}): fp32 (wmma) max|do|="
+              f"{e_o:.3e} max|dlse|={e_lse:.3e}; bf16 max|do| sm90 "
+              f"{e_16:.3e} wmma {e_16w:.3e}, sm90 max|dlse|={e_lse16:.3e}")
+        if not (e_o <= FP32_TOL and e_lse <= FP32_TOL and e_16 < BF16_TOL
+                and e_16w < BF16_TOL and e_lse16 <= LSE16_TOL):
             fail(f"K1 disagrees with its plain version at {label}")
-        if label == "slice":
-            slice_err = e_16
-        if label in ("slice", "train"):
-            q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
-            ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, scale))
-            plain_ms = cuda_ms(
-                lambda: fa.flash_attention_reference(q, k, v, scale))
-            qb, kb, vb = sdpa_inputs(q, k, v)
-            with torch.no_grad():
-                lib_ms = cuda_ms(lambda: torch.nn.functional
-                                 .scaled_dot_product_attention(
-                                     qb, kb, vb, scale=scale))
-            bound_ms, bound_by = attention_bound("K1", b, sq, sk, h, d,
-                                                 torch.bfloat16)
-            timed[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=bound_ms, bound_by=bound_by,
-                                max_abs_err=e_16)
-            print(f"K1 {label} bf16: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, SDPA forward {lib_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}) (CUDA events, median of "
-                  "10)")
-    return timed, slice_err
+        if label not in FLASH_TIMED:
+            continue
+        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, scale))
+        wmma_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, scale,
+                                                          route="wmma"))
+        plain_ms = cuda_ms(
+            lambda: fa.flash_attention_reference(q, k, v, scale))
+        qb, kb, vb = sdpa_inputs(q, k, v)
+        with torch.no_grad():
+            lib_ms = cuda_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 qb, kb, vb, scale=scale))
+        bound_ms, bound_by = attention_bound("K1", b, sq, sk, h, d,
+                                             torch.bfloat16)
+        timed[label] = dict(ms=ms, wmma_ms=wmma_ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=e_16,
+                            wmma_max_abs_err=e_16w)
+        if label == "train":
+            timed[label]["host_us"] = host_us(
+                lambda: fa.flash_attention_cuda(q, k, v, scale))
+            timed[label]["wmma_host_us"] = host_us(
+                lambda: fa.flash_attention_cuda(q, k, v, scale,
+                                                route="wmma"))
+            print(f"K1 {label} bf16 wrapper host time per call: sm90 "
+                  f"{timed[label]['host_us']:.1f} us (three tensor maps "
+                  f"encoded), wmma {timed[label]['wmma_host_us']:.1f} us")
+        print(f"K1 {label} bf16: sm90 {ms:.4f} ms, wmma {wmma_ms:.4f} ms "
+              f"(sm90 / wmma = {ms / wmma_ms:.3f}), plain {plain_ms:.4f} "
+              f"ms, SDPA forward {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; sm90 at {100 * bound_ms / ms:.1f} % of it) "
+              "(CUDA events, median of 10)")
+    return timed
 
 
 def check_k2_k3(fa):
-    """Phase 6: K2 and K3 against the plain backward on K1_SHAPES and the
-    training shape, fp32 and bf16, dO = cos(o) (the cotangent of
-    sum(sin(o))).  fp32: max |d grad| <= BWD_FP32_TOL.  bf16: each
-    gradient's max error against the fp32 plain gradient within
-    BWD_BF16_EXCESS of the plain bf16 backward's, and below BWD_BF16_REL of
-    max |fp32 gradient|.  Times both kernels, their plain versions and
-    SDPA's backward at the training shape; returns {'K2': rec, 'K3': rec}."""
+    """Phase 6: K2 and K3 against the plain backward on K1_SHAPES, the
+    training and the 576x320 shapes, fp32 and bf16, dO = cos(o) (the
+    cotangent of sum(sin(o))).  fp32 (the `wmma` route): max |d grad| <=
+    BWD_FP32_TOL.  bf16 (K3 on both routes): each gradient's max error
+    against the fp32 plain gradient within BWD_BF16_EXCESS of the plain bf16
+    backward's, and below BWD_BF16_REL of max |fp32 gradient|.  Times K2,
+    K3 on both routes, their plain versions and SDPA's backward at the
+    training and 576x320 shapes; returns {'K2': {label: rec}, 'K3': {label:
+    rec}}."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    worst = {"K2": 0.0, "K3": 0.0}
-    out = {}
-    for label, b, sq, sk, h, d in K1_SHAPES + [TRAIN_SHAPE]:
+    worst = {"K2": 0.0, "K3": 0.0, "K3_wmma": 0.0}
+    out = {"K2": {}, "K3": {}}
+    for label, b, sq, sk, h, d in K1_SHAPES + [TRAIN_SHAPE, HIRES_SHAPE]:
         q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=g)
                    for s in (sq, sk, sk))
         scale = d ** -0.5
@@ -227,37 +280,47 @@ def check_k2_k3(fa):
         got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
         e32 = [(a - r).abs().max().item() for a, r in zip(got, ref)]
+        del got
         q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        del q, k, v, o, lse, do
         o16, lse16 = fa.flash_attention_cuda(q16, k16, v16, scale)
         do16 = torch.cos(o16.float()).bfloat16()
         got16 = fa.flash_attention_bwd_cuda(q16, k16, v16, o16, lse16, do16,
                                             scale)
         plain16 = fa.flash_attention_bwd_reference(q16, k16, v16, o16, lse16,
                                                    do16, scale)
+        delta = fa.attention_delta(o16, do16)
+        args = (q16, k16, v16, do16, lse16, delta, scale)
+        dq_wmma = fa.flash_attention_bwd_dq_cuda(*args, route="wmma")
         torch.cuda.synchronize()
         e16 = [(a.float() - r).abs().max().item() for a, r in zip(got16, ref)]
         p16 = [(a.float() - r).abs().max().item()
                for a, r in zip(plain16, ref)]
+        e16w = (dq_wmma.float() - ref[0]).abs().max().item()
         scale_ref = [r.abs().max().item() for r in ref]
-        print(f"K2/K3 {label} ({b}x{sq}x{sk}x{h}x{d}): fp32 max|d dq,dk,dv|="
-              + ",".join(f"{e:.3e}" for e in e32) + "; bf16 kernel "
-              + ",".join(f"{e:.3e}" for e in e16) + " vs plain bf16 "
+        print(f"K2/K3 {label} ({b}x{sq}x{sk}x{h}x{d}): fp32 (wmma) max|d "
+              "dq,dk,dv|=" + ",".join(f"{e:.3e}" for e in e32)
+              + "; bf16 kernels " + ",".join(f"{e:.3e}" for e in e16)
+              + f" (dq on wmma {e16w:.3e}) vs plain bf16 "
               + ",".join(f"{e:.3e}" for e in p16) + " (max|ref| "
               + ",".join(f"{e:.3e}" for e in scale_ref) + ")")
-        for name, e, p, m in zip("q k v".split(), e16, p16, scale_ref):
+        for name, e, p, m in zip(["q", "k", "v", "q (wmma)"], e16 + [e16w],
+                                 p16 + p16[:1], scale_ref + scale_ref[:1]):
             if not e <= BWD_BF16_EXCESS * p or not e < BWD_BF16_REL * m:
                 fail(f"K2/K3 bf16 d{name} at {label}: {e} against plain "
                      f"{p}, max|ref| {m}")
         if max(e32) > BWD_FP32_TOL:
             fail(f"K2/K3 disagree with the plain backward at {label}: {e32}")
         worst["K3"] = max(worst["K3"], e16[0])
+        worst["K3_wmma"] = max(worst["K3_wmma"], e16w)
         worst["K2"] = max(worst["K2"], e16[1], e16[2])
-        if label != "train":
+        del ref, got16, plain16, dq_wmma
+        if label not in ("train", "hires"):
             continue
-        delta = fa.attention_delta(o16, do16)
-        args = (q16, k16, v16, do16, lse16, delta, scale)
         k2_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args))
         k3_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args))
+        k3_wmma = cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+            *args, route="wmma"))
         k2_plain = cuda_ms(
             lambda: fa.flash_attention_bwd_dkv_reference(*args))
         k3_plain = cuda_ms(
@@ -274,15 +337,31 @@ def check_k2_k3(fa):
                                    ("K3", k3_ms, k3_plain)):
             bound_ms, bound_by = attention_bound(name, b, sq, sk, h, d,
                                                  torch.bfloat16)
-            out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-            print(f"{name} train bf16: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        print(f"K2+K3 train bf16: {k2_ms + k3_ms:.4f} ms; SDPA backward "
-              f"{lib_ms:.4f} ms (forward+backward {fwd_bwd_ms:.4f} minus "
-              f"forward {fwd_ms:.4f}; CUDA events, median of 10)")
+            out[name][label] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+            print(f"{name} {label} bf16: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by};"
+                  f" kernel at {100 * bound_ms / ms:.1f} % of it)")
+        out["K3"][label]["wmma_ms"] = k3_wmma
+        if label == "train":
+            out["K3"][label]["host_us"] = host_us(
+                lambda: fa.flash_attention_bwd_dq_cuda(*args))
+            out["K3"][label]["wmma_host_us"] = host_us(
+                lambda: fa.flash_attention_bwd_dq_cuda(*args, route="wmma"))
+            print(f"K3 {label} bf16 wrapper host time per call: sm90 "
+                  f"{out['K3'][label]['host_us']:.1f} us, wmma "
+                  f"{out['K3'][label]['wmma_host_us']:.1f} us")
+        print(f"K3 {label} bf16: sm90 {k3_ms:.4f} ms, wmma {k3_wmma:.4f} ms "
+              f"(sm90 / wmma = {k3_ms / k3_wmma:.3f}); K2+K3 "
+              f"{k2_ms + k3_ms:.4f} ms; SDPA backward {lib_ms:.4f} ms "
+              f"(forward+backward {fwd_bwd_ms:.4f} minus forward "
+              f"{fwd_ms:.4f}; CUDA events, median of 10)")
+        del qb, kb, vb, dob
     for name in out:
-        out[name]["max_abs_err"] = worst[name]
+        for rec in out[name].values():
+            rec["max_abs_err"] = worst[name]
+    out["K3"]["train"]["wmma_max_abs_err"] = worst["K3_wmma"]
     return out
 
 
@@ -357,7 +436,8 @@ def write_pipeline(path: str):
 
 
 def serve(fa):
-    """Phases 4 and 5; returns the K1 launches of the serving path."""
+    """Phases 4 and 5; returns the K1 launch counts of the serving path
+    (`read_counts` keys), read just after it."""
     from text_to_video_finetuning_tpu_torch.pipelines.inference import (
         generate, initialize_pipeline)
 
@@ -380,9 +460,9 @@ def serve(fa):
             first_input["args"] = tuple(a.clone() for a in args)
     hook = pipe.unet.register_forward_pre_hook(capture)
 
-    fa.launch_count = 0                       # the serving path starts here
+    zero_counts()                             # the serving path starts here
     for name, prompt, seed, frames, window in REQUESTS:
-        before = fa.launch_count
+        before = read_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -391,14 +471,17 @@ def serve(fa):
                          num_steps=STEPS, guidance_scale=GUIDANCE, seed=seed)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = fa.launch_count - before
+        after = read_counts()
+        launches = after["K1"] - before["K1"]
+        on_wmma = after["K1_wmma"] - before["K1_wmma"]
         windows = frames // (window or frames)
         expected = FLASH_PER_UNET * STEPS * windows
         finite = bool(torch.isfinite(video).all())
         print(f"request {name}: {SIZE}x{SIZE}x{frames}f window {window or frames}"
               f", {STEPS} steps: {seconds:.2f} s, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"K1 launches {launches}, shape {tuple(video.shape)}, "
+              f"K1 launches {launches} ({on_wmma} on wmma), shape "
+              f"{tuple(video.shape)}, "
               f"finite {finite}, range [{video.min().item():.3f}, "
               f"{video.max().item():.3f}]")
         if tuple(video.shape) != (1, 3, frames, SIZE, SIZE) or not finite:
@@ -406,9 +489,11 @@ def serve(fa):
         if launches != expected:
             fail(f"request {name}: {launches} K1 launches, expected "
                  f"{expected}")
-    serving_launches = fa.launch_count        # read just after the path
+        if on_wmma:
+            fail(f"request {name}: {on_wmma} K1 launches on the wmma route")
+    serving_launches = read_counts()          # read just after the path
     hook.remove()
-    if serving_launches == 0:
+    if serving_launches["K1"] == 0:
         fail("the serving path never launched K1")
 
     # 5. K1 in context: request (a)'s first UNet input through the flash
@@ -424,7 +509,11 @@ def counters():
     from text_to_video_finetuning_tpu_torch.ops import groupnorm as gn
     return {"K1": (fa, "launch_count"), "K2": (fa, "dkv_launch_count"),
             "K3": (fa, "dq_launch_count"), "K4": (gn, "fwd_launch_count"),
-            "K5": (gn, "bwd_launch_count")}
+            "K5": (gn, "bwd_launch_count"),
+            "K1_sm90": (fa, "fwd_sm90_launch_count"),
+            "K1_wmma": (fa, "fwd_wmma_launch_count"),
+            "K3_sm90": (fa, "dq_sm90_launch_count"),
+            "K3_wmma": (fa, "dq_wmma_launch_count")}
 
 
 def read_counts():
@@ -548,16 +637,22 @@ def train_path(label, kwargs, timed, check_base=False, norm_shapes=None):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         after = read_counts()
-        got = {k: after[k] - before[k] for k in after}
+        by_route = {k: after[k] - before[k] for k in after if "_" in k}
+        got = {k: after[k] - before[k] for k in expected}
         loss0, loss1 = metrics["loss0"].item(), metrics["loss1"].item()
         print(f"[{label}] train step {i}: {seconds:.4f} s, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss0 "
               f"{loss0:.6f} loss1 {loss1:.6f} grad_norm "
               f"{metrics['grad_norm'].item():.4e}, launches {got} "
-              f"(expected {expected})")
+              f"(expected {expected}), K1 / K3 by route {by_route}")
         if got != expected:
             fail(f"[{label}] train step {i}: launches {got}, expected "
                  f"{expected}")
+        if (by_route["K1_wmma"] or by_route["K3_wmma"]
+                or by_route["K1_sm90"] != got["K1"]
+                or by_route["K3_sm90"] != got["K3"]):
+            fail(f"[{label}] train step {i}: K1 / K3 not all on the sm90 "
+                 f"route: {by_route}")
         if not (torch.isfinite(torch.tensor([loss0, loss1])).all()):
             fail(f"[{label}] train step {i}: non-finite loss")
     launches = read_counts()                        # read just after it
@@ -824,7 +919,7 @@ def main() -> int:
           f"{len(libs)} sources in parallel: {sorted(libs)})")
 
     # 3. K1 against its plain version
-    k1_timed, _ = check_k1(fa)
+    k1_timed = check_k1(fa)
 
     # 4-5. the serving path at full width
     serving_launches = serve(fa)
@@ -833,7 +928,7 @@ def main() -> int:
     # 6. K2 / K3 against the plain backward
     bwd = check_k2_k3(fa)
 
-    by_path = {}
+    by_path = {"serving": serving_launches}
     # 7. the training path at full width (the "nothing" policy, unfused)
     by_path["training"], built = train_path("default", {}, TRAIN_STEPS,
                                             check_base=True)
@@ -877,27 +972,43 @@ def main() -> int:
         return {path: counts[k] for path, counts in by_path.items()
                 if counts[k]}
 
+    def by_route(k):
+        return {r: sum(counts[f"{k}_{r}"] for counts in by_path.values())
+                for r in fa.ROUTES}
+
+    for k in ("K1", "K3"):
+        if by_route(k)["wmma"]:
+            fail(f"the main path sent {k} launches to the wmma route: "
+                 f"{by_route(k)}")
     source = "text_to_video_finetuning_tpu_torch/csrc/"
     replaces = "text_to_video_finetuning_tpu/ops/flash_attention.py:"
     gn_replaces = "text_to_video_finetuning_tpu/ops/groupnorm.py:"
-    k1 = k1_timed["slice"]
-    k1_paths = {"serving": serving_launches, **launches("K1")}
     records = [
-        {"name": "flash_attn_fwd", "route": "cuda",
-         "source": source + "flash_attn_fwd.cu", "replaces": replaces + "63",
-         "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
-         **k1, "shape": "B=32 S=1024 H=5 D=64 bf16 (serving)",
-         "train_shape": k1_timed["train"]},
+        {"name": "flash_attn_fwd_sm90", "route": "cuda",
+         "source": source + "flash_attn_fwd_sm90.cu",
+         "replaces": replaces + "63",
+         "wmma_source": source + "flash_attn_fwd.cu",
+         "launches": sum(launches("K1").values()),
+         "launches_by_path": launches("K1"),
+         "launches_by_route": by_route("K1"), **k1_timed["slice"],
+         "shape": "B=32 S=1024 H=5 D=64 bf16 (serving)",
+         "train_shape": k1_timed["train"],
+         "hires_shape": k1_timed["hires"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda",
          "source": source + "flash_attn_bwd.cu", "replaces": replaces + "154",
          "launches": sum(launches("K2").values()),
-         "launches_by_path": launches("K2"), **bwd["K2"],
-         "shape": "B=16 S=1024 H=5 D=64 bf16 (training)"},
-        {"name": "flash_attn_bwd_dq", "route": "cuda",
-         "source": source + "flash_attn_bwd.cu", "replaces": replaces + "196",
+         "launches_by_path": launches("K2"), **bwd["K2"]["train"],
+         "shape": "B=16 S=1024 H=5 D=64 bf16 (training)",
+         "hires_shape": bwd["K2"]["hires"]},
+        {"name": "flash_attn_dq_sm90", "route": "cuda",
+         "source": source + "flash_attn_dq_sm90.cu",
+         "replaces": replaces + "196",
+         "wmma_source": source + "flash_attn_bwd.cu",
          "launches": sum(launches("K3").values()),
-         "launches_by_path": launches("K3"), **bwd["K3"],
-         "shape": "B=16 S=1024 H=5 D=64 bf16 (training)"},
+         "launches_by_path": launches("K3"),
+         "launches_by_route": by_route("K3"), **bwd["K3"]["train"],
+         "shape": "B=16 S=1024 H=5 D=64 bf16 (training)",
+         "hires_shape": bwd["K3"]["hires"]},
     ]
     for k, name, line in (("K4", "group_norm_silu_fwd", "44"),
                           ("K5", "group_norm_silu_bwd", "70")):

@@ -1,7 +1,10 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions: K1 (flash-attention forward), K2 / K3 (its backward,
-dK/dV and dQ), K4 / K5 (fused GroupNorm+SiLU forward and backward).  Every
-test here needs an NVIDIA GPU (marked `gpu`) and skips elsewhere.  The file imports torch only, so it runs on a machine
+dK/dV and dQ), K4 / K5 (fused GroupNorm+SiLU forward and backward).  K1 and
+K3 have two routes: `sm90` (TMA + wgmma, bf16 / fp16 at head_dim 64) and
+`wmma` (fp32 and other head dims); the tests below hold each route on the
+shapes it takes.  Every test here needs an NVIDIA GPU (marked `gpu`) and
+skips elsewhere.  The file imports torch only, so it runs on a machine
 without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py -q
@@ -166,6 +169,139 @@ def test_flash_autograd_matches_plain_on_the_card(cuda, dtype):
     for got, t in zip(ours, (qf, kf, vf)):
         assert (got - t.grad).abs().max().item() <= \
             tol * max(1.0, t.grad.abs().max().item())
+
+
+# the sm90 route's shapes (head_dim 64): the flash tests' three, the serving
+# slice, the training step and the 576x320 step's 2,880 tokens
+SM90_SHAPES = [s for s in SHAPES if s[5] == 64 and s[0] != "temporal"] + [
+    ("train", 16, 1024, 1024, 5, 64),
+    ("hires_576x320", 16, 2880, 2880, 5, 64),
+]
+SM90_IDS = [s[0] for s in SM90_SHAPES]
+HALF = [torch.bfloat16, torch.float16]
+
+
+def _route_counts():
+    return (fa.fwd_sm90_launch_count, fa.fwd_wmma_launch_count,
+            fa.dq_sm90_launch_count, fa.dq_wmma_launch_count)
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("label,b,sq,sk,h,d", SM90_SHAPES, ids=SM90_IDS)
+def test_sm90_forward_matches_plain(cuda, label, b, sq, sk, h, d, dtype):
+    """K1 on the sm90 route: o within 2e-2 of the fp32 plain result, and
+    the lse (which K2 and K3 read) equal to the plain lse of the same
+    16-bit inputs to fp32 summation order."""
+    q, k, v = _qkv(cuda, b, sq, sk, h, d)
+    scale = d ** -0.5
+    o_ref, _ = fa.flash_attention_reference(q, k, v, scale)
+    q16, k16, v16 = (t.to(dtype) for t in (q, k, v))
+    _, lse16_ref = fa.flash_attention_reference(q16, k16, v16, scale)
+    assert fa.flash_route(q16) == "sm90"
+    before = _route_counts()
+    o, lse = fa.flash_attention_cuda(q16, k16, v16, scale)
+    torch.cuda.synchronize()
+    assert _route_counts() == (before[0] + 1, *before[1:])
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert (o.float() - o_ref).abs().max().item() < 2e-2
+    assert (lse - lse16_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("label,b,sq,sk,h,d", SM90_SHAPES, ids=SM90_IDS)
+def test_sm90_dq_matches_plain(cuda, label, b, sq, sk, h, d, dtype):
+    """K3 on the sm90 route: its dQ against the fp32 plain dQ within 1.5x
+    the plain 16-bit backward's error, and below 3e-2 of max |dQ|."""
+    q, k, v = _qkv(cuda, b, sq, sk, h, d)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_reference(q, k, v, scale)
+    do = torch.cos(o)
+    ref = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse,
+                                              fa.attention_delta(o, do),
+                                              scale)
+    q16, k16, v16 = (t.to(dtype) for t in (q, k, v))
+    o16, lse16 = fa.flash_attention_reference(q16, k16, v16, scale)
+    do16 = torch.cos(o16.float()).to(dtype)
+    delta16 = fa.attention_delta(o16, do16)
+    args = (q16, k16, v16, do16, lse16, delta16, scale)
+    before = _route_counts()
+    dq = fa.flash_attention_bwd_dq_cuda(*args)
+    torch.cuda.synchronize()
+    assert _route_counts() == (*before[:2], before[2] + 1, before[3])
+    plain = fa.flash_attention_bwd_dq_reference(*args)
+    assert dq.dtype == dtype
+    err = (dq.float() - ref).abs().max().item()
+    assert err <= 1.5 * (plain.float() - ref).abs().max().item()
+    assert err < 3e-2 * ref.abs().max().item()
+
+
+def test_sm90_reads_strided_bshd(cuda):
+    """bf16 q, k, v (and dO) as views of one packed (B, S, 3, H, D) tensor:
+    the tensor maps read them through their strides."""
+    qkv = torch.randn(2, 300, 3, 4, 64, device="cuda", generator=cuda)
+    q, k, v = qkv.bfloat16().unbind(2)
+    assert not q.is_contiguous() and fa.flash_route(q) == "sm90"
+    o, lse = fa.flash_attention_cuda(q, k, v, 0.125)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, 0.125)
+    assert (o.float() - o_ref.float()).abs().max().item() < 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    do = torch.randn(2, 300, 8, 64, device="cuda",
+                     generator=cuda).bfloat16()[:, :, ::2]
+    delta = fa.attention_delta(o_ref, do)
+    args = (q, k, v, do, lse_ref, delta, 0.125)
+    dq = fa.flash_attention_bwd_dq_cuda(*args)
+    dq_wmma = fa.flash_attention_bwd_dq_cuda(*args, route="wmma")
+    ref = fa.flash_attention_bwd_dq_reference(*args)
+    scale_ref = ref.float().abs().max().item()
+    assert (dq.float() - ref.float()).abs().max().item() < 3e-2 * scale_ref
+    assert (dq.float() - dq_wmma.float()).abs().max().item() < \
+        3e-2 * scale_ref
+
+
+def test_route_rule_counts_each_route(cuda):
+    """bf16 / fp16 at head_dim 64 take sm90; fp32 and head_dim 40 take
+    wmma; `route="wmma"` forces the first design on a 16-bit call; the
+    totals count every launch."""
+    cases = [(torch.bfloat16, 64, "sm90"), (torch.float16, 64, "sm90"),
+             (torch.float32, 64, "wmma"), (torch.bfloat16, 40, "wmma")]
+    for dtype, d, route in cases:
+        q, k, v = (t.to(dtype) for t in _qkv(cuda, 2, 130, 70, 2, d))
+        assert fa.flash_route(q) == route
+        o, lse = fa.flash_attention_reference(q, k, v, d ** -0.5)
+        delta = fa.attention_delta(o, o)
+        before = _route_counts() + (fa.launch_count, fa.dq_launch_count)
+        fa.flash_attention_cuda(q, k, v, d ** -0.5)
+        fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, delta, d ** -0.5)
+        after = _route_counts() + (fa.launch_count, fa.dq_launch_count)
+        got = [a - b for a, b in zip(after, before)]
+        assert got == ([1, 0, 1, 0, 1, 1] if route == "sm90"
+                       else [0, 1, 0, 1, 1, 1]), (dtype, d, got)
+    q, k, v = (t.bfloat16() for t in _qkv(cuda, 2, 130, 70, 2, 64))
+    before = _route_counts()
+    o_wmma, _ = fa.flash_attention_cuda(q, k, v, 0.125, route="wmma")
+    o_sm90, _ = fa.flash_attention_cuda(q, k, v, 0.125, route="sm90")
+    assert _route_counts() == (before[0] + 1, before[1] + 1, *before[2:])
+    assert (o_wmma.float() - o_sm90.float()).abs().max().item() < 2e-2
+    with pytest.raises(ValueError, match="sm90 route takes"):
+        fa.flash_attention_cuda(q.float(), k.float(), v.float(), 0.125,
+                                route="sm90")
+
+
+def test_sm90_refuses_unaligned_strides(cuda):
+    """A sequence stride of 260 elements (520 bytes) cannot be a TMA
+    stride: the sm90 route raises ValueError and launches nothing."""
+    base = torch.randn(2, 100, 4 * 64 + 4, device="cuda",
+                       generator=cuda).bfloat16()
+    q = base[..., :256].unflatten(-1, (4, 64))
+    assert q.stride(1) == 260
+    before = _route_counts() + (fa.launch_count,)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_cuda(q, q, q, 0.125)
+    o, lse = fa.flash_attention_reference(q, q, q, 0.125)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd_dq_cuda(q, q, q, o, lse,
+                                       fa.attention_delta(o, o), 0.125)
+    assert _route_counts() + (fa.launch_count,) == before
 
 
 # (label, x shape NCHW, groups): ragged slabs, G = 4 / 8 / 32, 3-D spatial

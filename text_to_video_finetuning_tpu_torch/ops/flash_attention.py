@@ -1,12 +1,22 @@
 """Flash attention, forward and backward: the hand-written Hopper kernels and
 their plain twins.
 
-Three CUDA kernels replace the Pallas TPU kernels of
+CUDA kernels replace the Pallas TPU kernels of
 `text_to_video_finetuning_tpu/ops/flash_attention.py`:
 
-* K1, `csrc/flash_attn_fwd.cu`: the forward (`_fwd_kernel`);
-* K2 and K3, `csrc/flash_attn_bwd.cu`: dK/dV (`_bwd_dkv_kernel`) and dQ
-  (`_bwd_dq_kernel`).
+* K1, the forward (`_fwd_kernel`): `csrc/flash_attn_fwd_sm90.cu` (TMA,
+  wgmma, softmax and accumulators in registers) on the `sm90` route,
+  `csrc/flash_attn_fwd.cu` (WMMA) on the `wmma` route;
+* K3, dQ (`_bwd_dq_kernel`): `csrc/flash_attn_dq_sm90.cu` on the `sm90`
+  route, `csrc/flash_attn_bwd.cu` on the `wmma` route;
+* K2, dK/dV (`_bwd_dkv_kernel`): `csrc/flash_attn_bwd.cu`.
+
+`flash_route(q)` picks the route from the inputs alone: `sm90` for bf16 /
+fp16 at head_dim 64 (every attention of the ms-1.7b UNet), `wmma` for fp32
+and every other head_dim.  On the `sm90` route q, k, v (and dO) are read
+through TMA tensor maps, so their base addresses and strides must be 16-byte
+aligned; the wrappers raise `ValueError` on anything else.  The route never
+depends on whether a build or a launch succeeds: a failure raises.
 
 `ops/kernel_build.py` compiles the sources with nvcc for sm_90a into shared
 libraries; they are called through plain C entry points with ctypes, on
@@ -19,7 +29,8 @@ PyTorch's current stream.
   `flash_attention_bwd_dq_cuda` (K3) and `flash_attention_bwd_cuda` (delta,
   then K2 and K3): the kernels, each beside its plain `*_reference`.  They
   raise on anything they do not take (CPU tensors included); they never
-  fall back.
+  fall back.  K1 and K3 take an optional `route` (tests and `chip_smoke.py`
+  time both routes on the same inputs with it).
 * `torch.ops.t2v.flash_attention_fwd(q, k, v, scale) -> (o, lse)`: K1 as a
   custom operator, with its backward (K2 + K3) registered as its autograd
   formula.  CPU tensors take the plain forward and backward, CUDA tensors
@@ -44,13 +55,20 @@ import torch
 from . import kernel_build
 
 MAX_HEAD_DIM = 128
+SM90_HEAD_DIM = 64
+ROUTES = ("sm90", "wmma")
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # kernel launches, counted by the wrappers where they launch (plain counts;
-# callers reset them by assignment): K1, K2 and K3
+# callers reset them by assignment): K1, K2 and K3 on any route, and K1 and
+# K3 by route
 launch_count = 0
 dkv_launch_count = 0
 dq_launch_count = 0
+fwd_sm90_launch_count = 0
+fwd_wmma_launch_count = 0
+dq_sm90_launch_count = 0
+dq_wmma_launch_count = 0
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 _lib_lock = threading.Lock()
@@ -78,7 +96,20 @@ def _load() -> Dict[str, ctypes.CDLL]:
             bwd.t2v_flash_attn_bwd_dq.restype = i
             bwd.t2v_flash_bwd_error_string.argtypes = [i]
             bwd.t2v_flash_bwd_error_string.restype = ctypes.c_char_p
-            _libs = {"fwd": fwd, "bwd": bwd}
+            fwd90 = ctypes.CDLL(paths["flash_attn_fwd_sm90"])
+            fwd90.t2v_flash_attn_fwd_sm90.argtypes = \
+                fwd.t2v_flash_attn_fwd.argtypes
+            fwd90.t2v_flash_attn_fwd_sm90.restype = i
+            dq90 = ctypes.CDLL(paths["flash_attn_dq_sm90"])
+            dq90.t2v_flash_attn_dq_sm90.argtypes = \
+                bwd.t2v_flash_attn_bwd_dq.argtypes
+            dq90.t2v_flash_attn_dq_sm90.restype = i
+            for lib, name in ((fwd90, "t2v_flash_fwd_sm90_error_string"),
+                              (dq90, "t2v_flash_dq_sm90_error_string")):
+                getattr(lib, name).argtypes = [i]
+                getattr(lib, name).restype = ctypes.c_char_p
+            _libs = {"fwd": fwd, "bwd": bwd, "fwd_sm90": fwd90,
+                     "dq_sm90": dq90}
         return _libs
 
 
@@ -190,32 +221,102 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def flash_route(q: torch.Tensor) -> str:
+    """The kernel route of a K1 / K3 call, from the inputs alone: `sm90`
+    (TMA + wgmma) for bf16 / fp16 at head_dim 64, `wmma` otherwise."""
+    if (q.dtype in (torch.bfloat16, torch.float16)
+            and q.shape[-1] == SM90_HEAD_DIM):
+        return "sm90"
+    return "wmma"
+
+
+def _pick_route(route: Optional[str], q: torch.Tensor) -> str:
+    if route is None:
+        return flash_route(q)
+    if route not in ROUTES:
+        raise ValueError(f"flash attention route {route!r} not in {ROUTES}")
+    if route == "sm90" and flash_route(q) != "sm90":
+        raise ValueError(f"the sm90 route takes bf16 / fp16 at head_dim "
+                         f"{SM90_HEAD_DIM}, got {q.dtype} head_dim "
+                         f"{q.shape[-1]}")
+    return route
+
+
+def _tma_strides(names, *tensors) -> list:
+    """(batch, seq, head) strides of each BSHD tensor as its TMA map reads
+    them: a dimension of size 1 is never stepped, so its stride is replaced
+    by an aligned one.  Raises ValueError unless every base address and
+    stride is 16-byte aligned, as TMA requires."""
+    vals = []
+    for name, t in zip(names, tensors):
+        b, s, h, d = t.shape
+        sb, ss, sh = t.stride()[:3]
+        sh = sh if h > 1 else d
+        ss = ss if s > 1 else sh * h
+        sb = sb if b > 1 else ss * s
+        item = t.element_size()
+        if t.data_ptr() % 16 or any(x * item % 16 for x in (sb, ss, sh)):
+            raise ValueError(
+                f"flash attention sm90 route: {name} must have a 16-byte "
+                f"aligned base address and (batch, seq, head) strides, got "
+                f"strides {t.stride()} at address {t.data_ptr():#x}")
+        vals += [sb, ss, sh]
+    return vals
+
+
+# (library, entry point, its error-string function) of K1 (`fwd`) and K3
+# (`dq`) on each route
+_ENTRIES = {
+    ("fwd", "sm90"): ("fwd_sm90", "t2v_flash_attn_fwd_sm90",
+                      "t2v_flash_fwd_sm90_error_string"),
+    ("fwd", "wmma"): ("fwd", "t2v_flash_attn_fwd", "t2v_cuda_error_string"),
+    ("dq", "sm90"): ("dq_sm90", "t2v_flash_attn_dq_sm90",
+                     "t2v_flash_dq_sm90_error_string"),
+    ("dq", "wmma"): ("bwd", "t2v_flash_attn_bwd_dq",
+                     "t2v_flash_bwd_error_string"),
+}
+
+
+def _entry(kernel: str, route: str):
+    """(entry point, error-string function) of K1 / K3 on `route`."""
+    lib_name, fn, errstr = _ENTRIES[kernel, route]
+    lib = _load()[lib_name]
+    return getattr(lib, fn), getattr(lib, errstr)
+
+
+def _count(kernel: str, route: str):
+    """One launch of K1 (`fwd`) or K3 (`dq`) on `route`: its total and its
+    route's counter."""
+    counts = globals()
+    counts["launch_count" if kernel == "fwd" else "dq_launch_count"] += 1
+    counts[f"{kernel}_{route}_launch_count"] += 1
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1: returns (o BSHD in q's dtype, lse (B, H, Sq) fp32).
-    Raises on CPU tensors, unsupported dtypes/shapes, a failed build or a
+                         scale: float, route: Optional[str] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1 on `route` (default `flash_route(q)`): returns (o BSHD in
+    q's dtype, lse (B, H, Sq) fp32).  Raises on CPU tensors, unsupported
+    dtypes/shapes, unaligned strides on the sm90 route, a failed build or a
     refused launch."""
-    global launch_count
     _check("qkv", q, k, v)
-    lib = _load()["fwd"]
+    route = _pick_route(route, q)
+    strides = (_tma_strides("qkv", q, k, v) if route == "sm90"
+               else [s for t in (q, k, v) for s in t.stride()[:3]])
+    launch, errstr = _entry("fwd", route)
     b, sq, h, d = q.shape
-    sk = k.shape[1]
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.t2v_flash_attn_fwd(
+        err = launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, h, sq, sk, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            o.stride(0), o.stride(1), o.stride(2),
-            float(scale), stream)
+            o.data_ptr(), lse.data_ptr(), b, h, sq, k.shape[1], d, *strides,
+            o.stride(0), o.stride(1), o.stride(2), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError("flash_attn_fwd launch failed: "
-                           + lib.t2v_cuda_error_string(err).decode())
-    launch_count += 1
+        raise RuntimeError(f"flash attention forward ({route}) launch "
+                           "failed: " + errstr(err).decode())
+    _count("fwd", route)
     return o, lse
 
 
@@ -264,21 +365,30 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, do: torch.Tensor,
                                 lse: torch.Tensor, delta: torch.Tensor,
-                                scale: float) -> torch.Tensor:
-    """Launch K3 on the same inputs as K2: returns dq, contiguous BSHD."""
-    global dq_launch_count
+                                scale: float, route: Optional[str] = None
+                                ) -> torch.Tensor:
+    """Launch K3 on the same inputs as K2, on `route` (default
+    `flash_route(q)`): returns dq, contiguous BSHD."""
     _check_bwd(q, k, v, do, lse, delta)
-    lib = _load()["bwd"]
+    route = _pick_route(route, q)
+    if route == "sm90":
+        vals = _tma_strides(("q", "k", "v", "dO"), q, k, v, do)
+        strides = (ctypes.c_longlong * len(vals))(*vals)
+    else:
+        strides = _strides(q, k, v, do)
+    launch, errstr = _entry("dq", route)
     b, sq, h, d = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
-        err = lib.t2v_flash_attn_bwd_dq(
+        err = launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, h, sq, k.shape[1], d, _strides(q, k, v, do), _strides(dq),
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    _bwd_error(lib, err, "dQ")
-    dq_launch_count += 1
+            b, h, sq, k.shape[1], d, strides, _strides(dq), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention dQ ({route}) launch failed: "
+                           + errstr(err).decode())
+    _count("dq", route)
     return dq
 
 

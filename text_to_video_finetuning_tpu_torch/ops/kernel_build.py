@@ -2,7 +2,8 @@
 
 `build()` compiles every `csrc/*.cu` with nvcc for sm_90a, one process per
 source, all started together, into shared libraries under `_build/` (each
-keyed by a hash of its source and the flags).  Every library exposes plain C
+keyed by a hash of its source, every `*.cuh` header beside it and the
+flags, so an edited header builds anew).  Every library exposes plain C
 entry points; each ops module loads its own with ctypes and calls it on
 PyTorch's current stream.  Nothing is built at import: the first kernel call
 builds, and `chip_smoke.py` builds everything up front.
@@ -46,8 +47,13 @@ def sources() -> Dict[str, str]:
 
 
 def _lib_path(name: str, source: str) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of `source`, keyed by the source, the headers of its
+    directory (`*.cuh`, which the sources include) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(os.path.dirname(source), "*.cuh")))
+    for path in [source] + headers:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
 
 
