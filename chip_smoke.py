@@ -10,7 +10,8 @@ from a seed).
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA device must be present; prints its name / power limit;
-  2. build every kernel from csrc/ with nvcc (sm_90a), one process each;
+  2. build every kernel from csrc/ with nvcc (sm_90a), one process each,
+     and print ptxas's registers, spills and wgmma serialization of each;
   3. K1 against its plain version on phase 3's shapes, the training shape
      and the 576x320 step's (2,880 tokens): fp32 on the `wmma` route, bf16
      on both routes (`sm90` by default); K1 on both routes, its plain
@@ -22,16 +23,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      count checked per request, every launch on the `sm90` route;
   5. K1 in context: request (a)'s first full-width UNet forward, flash vs
      plain, with fp32 and with bf16 weights;
-  6. K2 and K3 against the plain backward on phase 3's shapes, fp32 and
-     bf16 (K3 on both routes in bf16), dO = cos(o); K2, K3 on both routes,
-     the plain versions and SDPA's backward (forward + backward minus
-     forward) timed at the training and 576x320 shapes;
+  6. K2 and K3 against the plain backward on phase 3's shapes, fp32 (the
+     `wmma` route) and bf16 (both routes), dO = cos(o); K2 and K3 on both
+     routes, their plain versions and SDPA's backward (forward + backward
+     minus forward) timed at the training and 576x320 shapes;
   7. the training path: `training.build.build()` (ms-1.7b, rank-16 LoRA,
      256x256x16 cached latents, two-pass loss, checkpointing with the
      "nothing" policy, AdamW), one warm step and four timed steps, with the
      K1-K5 launches checked per step against the counts derived from the
-     model and every K1 / K3 launch checked to be on the `sm90` route (as
-     in phases 10-13);
+     model and every K1 / K2 / K3 launch checked to be on the `sm90` route
+     (as in phases 10-13);
   8. the backward in context: one pass's LoRA gradients at full width, flash
      vs plain attention, with fp32 and with bf16 weights;
   9. K4 and K5 against the plain pair, fp32 and bf16, dy = cos(y), on small
@@ -51,11 +52,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
  13. the 576x320 variant `hires16-fusedgn` (latents 40x72, 16 frames, the
      headline policy, fused GroupNorm): one warm and two timed steps.
 The last two lines are the kernels record and the device record (JSON).
-K1 and K3 run on two routes (ops/flash_attention.py::flash_route): `sm90`
-(csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dq_sm90.cu) for bf16 / fp16
-at head_dim 64, `wmma` (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) for
-the rest; the run fails if the main path sends any K1 or K3 launch to
-`wmma`.
+K1, K2 and K3 run on two routes (ops/flash_attention.py::flash_route):
+`sm90` (csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dkv_sm90.cu,
+csrc/flash_attn_dq_sm90.cu) for bf16 / fp16 at head_dim 64, `wmma`
+(csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) for the rest; the run
+fails if the main path sends any K1, K2 or K3 launch to `wmma`.
 Timings are smoke timings, not a benchmark: kernel times are device time by
 CUDA events with the card kept busy while the host enqueues (`cuda_ms`),
 step and request times host clock.
@@ -261,14 +262,14 @@ def check_k2_k3(fa):
     """Phase 6: K2 and K3 against the plain backward on K1_SHAPES, the
     training and the 576x320 shapes, fp32 and bf16, dO = cos(o) (the
     cotangent of sum(sin(o))).  fp32 (the `wmma` route): max |d grad| <=
-    BWD_FP32_TOL.  bf16 (K3 on both routes): each gradient's max error
-    against the fp32 plain gradient within BWD_BF16_EXCESS of the plain bf16
-    backward's, and below BWD_BF16_REL of max |fp32 gradient|.  Times K2,
-    K3 on both routes, their plain versions and SDPA's backward at the
-    training and 576x320 shapes; returns {'K2': {label: rec}, 'K3': {label:
-    rec}}."""
+    BWD_FP32_TOL.  bf16 (K2 and K3 on both routes): each gradient's max
+    error against the fp32 plain gradient within BWD_BF16_EXCESS of the
+    plain bf16 backward's, and below BWD_BF16_REL of max |fp32 gradient|.
+    Times K2 and K3 on both routes, their plain versions and SDPA's backward
+    at the training and 576x320 shapes; returns {'K2': {label: rec}, 'K3':
+    {label: rec}}."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    worst = {"K2": 0.0, "K3": 0.0, "K3_wmma": 0.0}
+    worst = {"K2": 0.0, "K3": 0.0, "K2_wmma": 0.0, "K3_wmma": 0.0}
     out = {"K2": {}, "K3": {}}
     for label, b, sq, sk, h, d in K1_SHAPES + [TRAIN_SHAPE, HIRES_SHAPE]:
         q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=g)
@@ -291,33 +292,39 @@ def check_k2_k3(fa):
                                                    do16, scale)
         delta = fa.attention_delta(o16, do16)
         args = (q16, k16, v16, do16, lse16, delta, scale)
-        dq_wmma = fa.flash_attention_bwd_dq_cuda(*args, route="wmma")
+        wmma16 = (fa.flash_attention_bwd_dq_cuda(*args, route="wmma"),
+                  *fa.flash_attention_bwd_dkv_cuda(*args, route="wmma"))
         torch.cuda.synchronize()
         e16 = [(a.float() - r).abs().max().item() for a, r in zip(got16, ref)]
         p16 = [(a.float() - r).abs().max().item()
                for a, r in zip(plain16, ref)]
-        e16w = (dq_wmma.float() - ref[0]).abs().max().item()
+        e16w = [(a.float() - r).abs().max().item()
+                for a, r in zip(wmma16, ref)]
         scale_ref = [r.abs().max().item() for r in ref]
         print(f"K2/K3 {label} ({b}x{sq}x{sk}x{h}x{d}): fp32 (wmma) max|d "
               "dq,dk,dv|=" + ",".join(f"{e:.3e}" for e in e32)
-              + "; bf16 kernels " + ",".join(f"{e:.3e}" for e in e16)
-              + f" (dq on wmma {e16w:.3e}) vs plain bf16 "
-              + ",".join(f"{e:.3e}" for e in p16) + " (max|ref| "
-              + ",".join(f"{e:.3e}" for e in scale_ref) + ")")
-        for name, e, p, m in zip(["q", "k", "v", "q (wmma)"], e16 + [e16w],
-                                 p16 + p16[:1], scale_ref + scale_ref[:1]):
+              + "; bf16 sm90 " + ",".join(f"{e:.3e}" for e in e16)
+              + ", wmma " + ",".join(f"{e:.3e}" for e in e16w)
+              + " vs plain bf16 " + ",".join(f"{e:.3e}" for e in p16)
+              + " (max|ref| " + ",".join(f"{e:.3e}" for e in scale_ref) + ")")
+        for name, e, p, m in zip(
+                ["q", "k", "v", "q (wmma)", "k (wmma)", "v (wmma)"],
+                e16 + e16w, p16 * 2, scale_ref * 2):
             if not e <= BWD_BF16_EXCESS * p or not e < BWD_BF16_REL * m:
                 fail(f"K2/K3 bf16 d{name} at {label}: {e} against plain "
                      f"{p}, max|ref| {m}")
         if max(e32) > BWD_FP32_TOL:
             fail(f"K2/K3 disagree with the plain backward at {label}: {e32}")
         worst["K3"] = max(worst["K3"], e16[0])
-        worst["K3_wmma"] = max(worst["K3_wmma"], e16w)
+        worst["K3_wmma"] = max(worst["K3_wmma"], e16w[0])
         worst["K2"] = max(worst["K2"], e16[1], e16[2])
-        del ref, got16, plain16, dq_wmma
+        worst["K2_wmma"] = max(worst["K2_wmma"], e16w[1], e16w[2])
+        del ref, got16, plain16, wmma16
         if label not in ("train", "hires"):
             continue
         k2_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args))
+        k2_wmma = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+            *args, route="wmma"))
         k3_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args))
         k3_wmma = cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(
             *args, route="wmma"))
@@ -333,35 +340,37 @@ def check_k2_k3(fa):
         fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             sdpa(qb, kb, vb, scale=scale), (qb, kb, vb), dob))
         lib_ms = fwd_bwd_ms - fwd_ms
-        for name, ms, plain_ms in (("K2", k2_ms, k2_plain),
-                                   ("K3", k3_ms, k3_plain)):
+        wrappers = {"K2": fa.flash_attention_bwd_dkv_cuda,
+                    "K3": fa.flash_attention_bwd_dq_cuda}
+        for name, ms, wmma_ms, plain_ms in (
+                ("K2", k2_ms, k2_wmma, k2_plain),
+                ("K3", k3_ms, k3_wmma, k3_plain)):
             bound_ms, bound_by = attention_bound(name, b, sq, sk, h, d,
                                                  torch.bfloat16)
-            out[name][label] = dict(ms=ms, plain_ms=plain_ms,
-                                    library_ms=lib_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by)
-            print(f"{name} {label} bf16: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by};"
-                  f" kernel at {100 * bound_ms / ms:.1f} % of it)")
-        out["K3"][label]["wmma_ms"] = k3_wmma
-        if label == "train":
-            out["K3"][label]["host_us"] = host_us(
-                lambda: fa.flash_attention_bwd_dq_cuda(*args))
-            out["K3"][label]["wmma_host_us"] = host_us(
-                lambda: fa.flash_attention_bwd_dq_cuda(*args, route="wmma"))
-            print(f"K3 {label} bf16 wrapper host time per call: sm90 "
-                  f"{out['K3'][label]['host_us']:.1f} us, wmma "
-                  f"{out['K3'][label]['wmma_host_us']:.1f} us")
-        print(f"K3 {label} bf16: sm90 {k3_ms:.4f} ms, wmma {k3_wmma:.4f} ms "
-              f"(sm90 / wmma = {k3_ms / k3_wmma:.3f}); K2+K3 "
-              f"{k2_ms + k3_ms:.4f} ms; SDPA backward {lib_ms:.4f} ms "
-              f"(forward+backward {fwd_bwd_ms:.4f} minus forward "
-              f"{fwd_ms:.4f}; CUDA events, median of 10)")
+            out[name][label] = dict(ms=ms, wmma_ms=wmma_ms,
+                                    plain_ms=plain_ms, library_ms=lib_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+            print(f"{name} {label} bf16: sm90 {ms:.4f} ms, wmma "
+                  f"{wmma_ms:.4f} ms (sm90 / wmma = {ms / wmma_ms:.3f}), "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; sm90 at {100 * bound_ms / ms:.1f} % of it)")
+            if label == "train":
+                fn = wrappers[name]
+                rec = out[name][label]
+                rec["host_us"] = host_us(lambda: fn(*args))
+                rec["wmma_host_us"] = host_us(lambda: fn(*args,
+                                                         route="wmma"))
+                print(f"{name} {label} bf16 wrapper host time per call: "
+                      f"sm90 {rec['host_us']:.1f} us, wmma "
+                      f"{rec['wmma_host_us']:.1f} us")
+        print(f"K2+K3 {label} bf16: sm90 {k2_ms + k3_ms:.4f} ms; SDPA "
+              f"backward {lib_ms:.4f} ms (forward+backward {fwd_bwd_ms:.4f} "
+              f"minus forward {fwd_ms:.4f}; CUDA events, median of 10)")
         del qb, kb, vb, dob
     for name in out:
         for rec in out[name].values():
             rec["max_abs_err"] = worst[name]
-    out["K3"]["train"]["wmma_max_abs_err"] = worst["K3_wmma"]
+        out[name]["train"]["wmma_max_abs_err"] = worst[f"{name}_wmma"]
     return out
 
 
@@ -512,6 +521,8 @@ def counters():
             "K5": (gn, "bwd_launch_count"),
             "K1_sm90": (fa, "fwd_sm90_launch_count"),
             "K1_wmma": (fa, "fwd_wmma_launch_count"),
+            "K2_sm90": (fa, "dkv_sm90_launch_count"),
+            "K2_wmma": (fa, "dkv_wmma_launch_count"),
             "K3_sm90": (fa, "dq_sm90_launch_count"),
             "K3_wmma": (fa, "dq_wmma_launch_count")}
 
@@ -644,14 +655,13 @@ def train_path(label, kwargs, timed, check_base=False, norm_shapes=None):
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss0 "
               f"{loss0:.6f} loss1 {loss1:.6f} grad_norm "
               f"{metrics['grad_norm'].item():.4e}, launches {got} "
-              f"(expected {expected}), K1 / K3 by route {by_route}")
+              f"(expected {expected}), K1-K3 by route {by_route}")
         if got != expected:
             fail(f"[{label}] train step {i}: launches {got}, expected "
                  f"{expected}")
-        if (by_route["K1_wmma"] or by_route["K3_wmma"]
-                or by_route["K1_sm90"] != got["K1"]
-                or by_route["K3_sm90"] != got["K3"]):
-            fail(f"[{label}] train step {i}: K1 / K3 not all on the sm90 "
+        if any(by_route[f"{k}_wmma"] or by_route[f"{k}_sm90"] != got[k]
+               for k in ("K1", "K2", "K3")):
+            fail(f"[{label}] train step {i}: K1-K3 not all on the sm90 "
                  f"route: {by_route}")
         if not (torch.isfinite(torch.tensor([loss0, loss1])).all()):
             fail(f"[{label}] train step {i}: non-finite loss")
@@ -917,6 +927,8 @@ def main() -> int:
     libs = kernel_build.build(force=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, "
           f"{len(libs)} sources in parallel: {sorted(libs)})")
+    for name, path in sorted(libs.items()):
+        print(f"ptxas {name}: {kernel_build.ptxas_report(path)}")
 
     # 3. K1 against its plain version
     k1_timed = check_k1(fa)
@@ -976,7 +988,7 @@ def main() -> int:
         return {r: sum(counts[f"{k}_{r}"] for counts in by_path.values())
                 for r in fa.ROUTES}
 
-    for k in ("K1", "K3"):
+    for k in ("K1", "K2", "K3"):
         if by_route(k)["wmma"]:
             fail(f"the main path sent {k} launches to the wmma route: "
                  f"{by_route(k)}")
@@ -994,10 +1006,13 @@ def main() -> int:
          "shape": "B=32 S=1024 H=5 D=64 bf16 (serving)",
          "train_shape": k1_timed["train"],
          "hires_shape": k1_timed["hires"]},
-        {"name": "flash_attn_bwd_dkv", "route": "cuda",
-         "source": source + "flash_attn_bwd.cu", "replaces": replaces + "154",
+        {"name": "flash_attn_dkv_sm90", "route": "cuda",
+         "source": source + "flash_attn_dkv_sm90.cu",
+         "replaces": replaces + "154",
+         "wmma_source": source + "flash_attn_bwd.cu",
          "launches": sum(launches("K2").values()),
-         "launches_by_path": launches("K2"), **bwd["K2"]["train"],
+         "launches_by_path": launches("K2"),
+         "launches_by_route": by_route("K2"), **bwd["K2"]["train"],
          "shape": "B=16 S=1024 H=5 D=64 bf16 (training)",
          "hires_shape": bwd["K2"]["hires"]},
         {"name": "flash_attn_dq_sm90", "route": "cuda",

@@ -1,9 +1,9 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions: K1 (flash-attention forward), K2 / K3 (its backward,
-dK/dV and dQ), K4 / K5 (fused GroupNorm+SiLU forward and backward).  K1 and
-K3 have two routes: `sm90` (TMA + wgmma, bf16 / fp16 at head_dim 64) and
-`wmma` (fp32 and other head dims); the tests below hold each route on the
-shapes it takes.  Every test here needs an NVIDIA GPU (marked `gpu`) and
+dK/dV and dQ), K4 / K5 (fused GroupNorm+SiLU forward and backward).  K1,
+K2 and K3 have two routes: `sm90` (TMA + wgmma, bf16 / fp16 at head_dim 64)
+and `wmma` (fp32 and other head dims); the tests below hold each route on
+the shapes it takes.  Every test here needs an NVIDIA GPU (marked `gpu`) and
 skips elsewhere.  The file imports torch only, so it runs on a machine
 without JAX:
 
@@ -182,8 +182,15 @@ HALF = [torch.bfloat16, torch.float16]
 
 
 def _route_counts():
-    return (fa.fwd_sm90_launch_count, fa.fwd_wmma_launch_count,
-            fa.dq_sm90_launch_count, fa.dq_wmma_launch_count)
+    """{kernel_route: launches} of K1 (`fwd`), K2 (`dkv`) and K3 (`dq`)."""
+    return {f"{k}_{r}": getattr(fa, f"{k}_{r}_launch_count")
+            for k in ("fwd", "dkv", "dq") for r in fa.ROUTES}
+
+
+def _launched(before):
+    """The route counters that moved since `before`, by how much."""
+    return {c: n - before[c] for c, n in _route_counts().items()
+            if n != before[c]}
 
 
 @pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
@@ -201,7 +208,7 @@ def test_sm90_forward_matches_plain(cuda, label, b, sq, sk, h, d, dtype):
     before = _route_counts()
     o, lse = fa.flash_attention_cuda(q16, k16, v16, scale)
     torch.cuda.synchronize()
-    assert _route_counts() == (before[0] + 1, *before[1:])
+    assert _launched(before) == {"fwd_sm90": 1}
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert (o.float() - o_ref).abs().max().item() < 2e-2
     assert (lse - lse16_ref).abs().max().item() <= 1e-3
@@ -227,12 +234,42 @@ def test_sm90_dq_matches_plain(cuda, label, b, sq, sk, h, d, dtype):
     before = _route_counts()
     dq = fa.flash_attention_bwd_dq_cuda(*args)
     torch.cuda.synchronize()
-    assert _route_counts() == (*before[:2], before[2] + 1, before[3])
+    assert _launched(before) == {"dq_sm90": 1}
     plain = fa.flash_attention_bwd_dq_reference(*args)
     assert dq.dtype == dtype
     err = (dq.float() - ref).abs().max().item()
     assert err <= 1.5 * (plain.float() - ref).abs().max().item()
     assert err < 3e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("label,b,sq,sk,h,d", SM90_SHAPES, ids=SM90_IDS)
+def test_sm90_dkv_matches_plain(cuda, label, b, sq, sk, h, d, dtype):
+    """K2 on the sm90 route: its dK and dV against the fp32 plain result
+    within 1.5x the plain 16-bit backward's error, and below 3e-2 of max
+    |dK| / |dV|; Sk = 77 and Sq = 200 cover ragged KV and Q tiles."""
+    q, k, v = _qkv(cuda, b, sq, sk, h, d)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_reference(q, k, v, scale)
+    do = torch.cos(o)
+    ref = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse,
+                                               fa.attention_delta(o, do),
+                                               scale)
+    q16, k16, v16 = (t.to(dtype) for t in (q, k, v))
+    o16, lse16 = fa.flash_attention_reference(q16, k16, v16, scale)
+    do16 = torch.cos(o16.float()).to(dtype)
+    delta16 = fa.attention_delta(o16, do16)
+    args = (q16, k16, v16, do16, lse16, delta16, scale)
+    before = _route_counts()
+    got = fa.flash_attention_bwd_dkv_cuda(*args)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"dkv_sm90": 1}
+    plain = fa.flash_attention_bwd_dkv_reference(*args)
+    for a, p, r in zip(got, plain, ref):
+        assert a.dtype == dtype and a.shape == r.shape
+        err = (a.float() - r).abs().max().item()
+        assert err <= 1.5 * (p.float() - r).abs().max().item()
+        assert err < 3e-2 * r.abs().max().item()
 
 
 def test_sm90_reads_strided_bshd(cuda):
@@ -249,19 +286,28 @@ def test_sm90_reads_strided_bshd(cuda):
                      generator=cuda).bfloat16()[:, :, ::2]
     delta = fa.attention_delta(o_ref, do)
     args = (q, k, v, do, lse_ref, delta, 0.125)
+    before = _route_counts()
     dq = fa.flash_attention_bwd_dq_cuda(*args)
     dq_wmma = fa.flash_attention_bwd_dq_cuda(*args, route="wmma")
+    dkv = fa.flash_attention_bwd_dkv_cuda(*args)
+    dkv_wmma = fa.flash_attention_bwd_dkv_cuda(*args, route="wmma")
+    assert _launched(before) == {"dq_sm90": 1, "dq_wmma": 1, "dkv_sm90": 1,
+                                 "dkv_wmma": 1}
     ref = fa.flash_attention_bwd_dq_reference(*args)
-    scale_ref = ref.float().abs().max().item()
-    assert (dq.float() - ref.float()).abs().max().item() < 3e-2 * scale_ref
-    assert (dq.float() - dq_wmma.float()).abs().max().item() < \
-        3e-2 * scale_ref
+    dkv_ref = fa.flash_attention_bwd_dkv_reference(*args)
+    for got, wmma, r in [(dq, dq_wmma, ref)] + list(zip(dkv, dkv_wmma,
+                                                         dkv_ref)):
+        scale_ref = r.float().abs().max().item()
+        assert (got.float() - r.float()).abs().max().item() < 3e-2 * scale_ref
+        assert (got.float() - wmma.float()).abs().max().item() < \
+            3e-2 * scale_ref
 
 
 def test_route_rule_counts_each_route(cuda):
     """bf16 / fp16 at head_dim 64 take sm90; fp32 and head_dim 40 take
-    wmma; `route="wmma"` forces the first design on a 16-bit call; the
-    totals count every launch."""
+    wmma, for K1, K2 and K3 alike; `route="wmma"` forces the first design on
+    a 16-bit call; the totals count every launch."""
+    totals = ("launch_count", "dkv_launch_count", "dq_launch_count")
     cases = [(torch.bfloat16, 64, "sm90"), (torch.float16, 64, "sm90"),
              (torch.float32, 64, "wmma"), (torch.bfloat16, 40, "wmma")]
     for dtype, d, route in cases:
@@ -269,39 +315,56 @@ def test_route_rule_counts_each_route(cuda):
         assert fa.flash_route(q) == route
         o, lse = fa.flash_attention_reference(q, k, v, d ** -0.5)
         delta = fa.attention_delta(o, o)
-        before = _route_counts() + (fa.launch_count, fa.dq_launch_count)
+        before = _route_counts()
+        before_totals = [getattr(fa, c) for c in totals]
         fa.flash_attention_cuda(q, k, v, d ** -0.5)
+        fa.flash_attention_bwd_dkv_cuda(q, k, v, o, lse, delta, d ** -0.5)
         fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, delta, d ** -0.5)
-        after = _route_counts() + (fa.launch_count, fa.dq_launch_count)
-        got = [a - b for a, b in zip(after, before)]
-        assert got == ([1, 0, 1, 0, 1, 1] if route == "sm90"
-                       else [0, 1, 0, 1, 1, 1]), (dtype, d, got)
+        assert _launched(before) == {f"{k}_{route}": 1
+                                     for k in ("fwd", "dkv", "dq")}, \
+            (dtype, d)
+        assert [getattr(fa, c) - n
+                for c, n in zip(totals, before_totals)] == [1, 1, 1]
     q, k, v = (t.bfloat16() for t in _qkv(cuda, 2, 130, 70, 2, 64))
     before = _route_counts()
     o_wmma, _ = fa.flash_attention_cuda(q, k, v, 0.125, route="wmma")
     o_sm90, _ = fa.flash_attention_cuda(q, k, v, 0.125, route="sm90")
-    assert _route_counts() == (before[0] + 1, before[1] + 1, *before[2:])
+    o, lse = fa.flash_attention_reference(q, k, v, 0.125)
+    args = (q, k, v, o, lse, fa.attention_delta(o, o), 0.125)
+    dkv_wmma = fa.flash_attention_bwd_dkv_cuda(*args, route="wmma")
+    dkv_sm90 = fa.flash_attention_bwd_dkv_cuda(*args, route="sm90")
+    assert _launched(before) == {"fwd_wmma": 1, "fwd_sm90": 1, "dkv_wmma": 1,
+                                 "dkv_sm90": 1}
     assert (o_wmma.float() - o_sm90.float()).abs().max().item() < 2e-2
+    for a, b in zip(dkv_wmma, dkv_sm90):
+        assert (a.float() - b.float()).abs().max().item() < \
+            3e-2 * b.float().abs().max().item()
     with pytest.raises(ValueError, match="sm90 route takes"):
         fa.flash_attention_cuda(q.float(), k.float(), v.float(), 0.125,
                                 route="sm90")
+    with pytest.raises(ValueError, match="sm90 route takes"):
+        fa.flash_attention_bwd_dkv_cuda(*(t.float() for t in args[:4]),
+                                        *args[4:], route="sm90")
 
 
 def test_sm90_refuses_unaligned_strides(cuda):
     """A sequence stride of 260 elements (520 bytes) cannot be a TMA
-    stride: the sm90 route raises ValueError and launches nothing."""
+    stride: the sm90 route of K1, K2 and K3 raises ValueError and launches
+    nothing."""
     base = torch.randn(2, 100, 4 * 64 + 4, device="cuda",
                        generator=cuda).bfloat16()
     q = base[..., :256].unflatten(-1, (4, 64))
     assert q.stride(1) == 260
-    before = _route_counts() + (fa.launch_count,)
+    before = _route_counts()
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_cuda(q, q, q, 0.125)
     o, lse = fa.flash_attention_reference(q, q, q, 0.125)
+    delta = fa.attention_delta(o, o)
     with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention_bwd_dq_cuda(q, q, q, o, lse,
-                                       fa.attention_delta(o, o), 0.125)
-    assert _route_counts() + (fa.launch_count,) == before
+        fa.flash_attention_bwd_dkv_cuda(q, q, q, o, lse, delta, 0.125)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd_dq_cuda(q, q, q, o, lse, delta, 0.125)
+    assert _launched(before) == {}
 
 
 # (label, x shape NCHW, groups): ragged slabs, G = 4 / 8 / 32, 3-D spatial

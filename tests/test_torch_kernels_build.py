@@ -36,6 +36,33 @@ def test_library_path_follows_the_headers(tmp_path):
 def test_every_source_is_built():
     names = set(kernel_build.sources())
     assert {"flash_attn_fwd", "flash_attn_bwd", "groupnorm_silu",
-            "flash_attn_fwd_sm90", "flash_attn_dq_sm90"} <= names
+            "flash_attn_fwd_sm90", "flash_attn_dkv_sm90",
+            "flash_attn_dq_sm90"} <= names
     assert os.path.exists(os.path.join(kernel_build.CSRC_DIR,
                                        "flash_sm90.cuh"))
+
+
+def test_ptxas_report_reads_registers_spills_and_serialization(tmp_path):
+    """`build()` keeps ptxas's -v output beside each library; the report
+    takes the most registers, the spilled bytes and any serialized wgmma."""
+    lib = os.path.join(tmp_path, "kern_0123.so")
+    _write(kernel_build._report_path(lib), """\
+ptxas info    : Compiling entry function '_Z1kI6__halfEv' for 'sm_90a'
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized due to insufficient register resources for \
+the function '_Z1kI6__halfEv'
+    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 166 registers, used 1 barriers, 16 bytes cumulative \
+stack size
+ptxas info    : Compiling entry function '_Z1kIfEv' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+""")
+    assert kernel_build.ptxas_report(lib) == {
+        "registers": 166, "spill_bytes": 24, "wgmma_serialized": True}
+    _write(kernel_build._report_path(lib), """\
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 162 registers, used 1 barriers
+""")
+    assert kernel_build.ptxas_report(lib) == {
+        "registers": 162, "spill_bytes": 0, "wgmma_serialized": False}

@@ -11,7 +11,8 @@
   plain attention;
 * the dispatch: CPU tensors take the plain version, never the kernel;
 * the CUDA wrappers refuse CPU tensors;
-* the route rule of K1 / K3 (`flash_route`, explicit routes) and the sm90
+* the route rule of K1, K2 and K3 (`flash_route`, explicit routes: the
+  wrappers refuse a bad one before they look at the device) and the sm90
   route's stride check, which need no card.
 
 The kernel itself runs only on a card: tests/test_torch_kernels.py.
@@ -177,6 +178,35 @@ def test_flash_route_depends_on_dtype_and_head_dim(dtype, d, route):
             fa._pick_route("sm90", q)
     with pytest.raises(ValueError, match="not in"):
         fa._pick_route("cudnn", q)
+
+
+_WRAPPERS = {
+    "fwd": lambda q, route: fa.flash_attention_cuda(q, q, q, 0.125,
+                                                    route=route),
+    "dkv": lambda q, route: fa.flash_attention_bwd_dkv_cuda(
+        q, q, q, q, *[torch.zeros(1, 1, 8)] * 2, 0.125, route=route),
+    "dq": lambda q, route: fa.flash_attention_bwd_dq_cuda(
+        q, q, q, q, *[torch.zeros(1, 1, 8)] * 2, 0.125, route=route),
+}
+
+
+@pytest.mark.parametrize("dtype,d,route,match", [
+    (torch.bfloat16, 64, "cudnn", "not in"),
+    (torch.float32, 64, "sm90", "sm90 route takes"),
+    (torch.bfloat16, 40, "sm90", "sm90 route takes")],
+    ids=["unknown", "sm90_fp32", "sm90_d40"])
+@pytest.mark.parametrize("kernel", list(_WRAPPERS))
+def test_wrappers_refuse_a_route_the_inputs_do_not_take(kernel, dtype, d,
+                                                        route, match):
+    """K1, K2 and K3 pick their route from the inputs before anything else:
+    an unknown route, or `sm90` for fp32 or head_dim 40, raises ValueError
+    (here on CPU tensors, before the device check) and launches nothing."""
+    q = torch.zeros(1, 8, 1, d, dtype=dtype)
+    counts = ("launch_count", "dkv_launch_count", "dq_launch_count")
+    before = [getattr(fa, c) for c in counts]
+    with pytest.raises(ValueError, match=match):
+        _WRAPPERS[kernel](q, route)
+    assert [getattr(fa, c) for c in counts] == before
 
 
 def test_sm90_stride_check():

@@ -41,8 +41,10 @@
 // (q, k, v, dO, lse, delta in; dK and dV, or dQ, out: 64 MB for K2, 53 MB
 // for K3) take 19 us and 16 us at 3.35 TB/s, so both are compute-bound.
 // This first version is plain WMMA with scalar softmax arithmetic in shared
-// memory and no TMA / wgmma / pipelining; those are the next steps for
-// speed.
+// memory and no TMA / wgmma / pipelining.  It is the `wmma` route of
+// ops/flash_attention.py (fp32, and head dims other than 64); bf16 / fp16 at
+// head_dim 64 take flash_attn_dkv_sm90.cu (K2) and flash_attn_dq_sm90.cu
+// (K3).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

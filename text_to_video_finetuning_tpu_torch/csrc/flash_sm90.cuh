@@ -1,23 +1,28 @@
 // Shared pieces of the Hopper (sm_90a) flash-attention kernels
-// flash_attn_fwd_sm90.cu (K1) and flash_attn_dq_sm90.cu (K3): the CTA
-// geometry, TMA tensor maps over BSHD tensors, mbarriers, wgmma descriptors
-// and instructions, and the register-fragment helpers.
+// flash_attn_fwd_sm90.cu (K1), flash_attn_dkv_sm90.cu (K2) and
+// flash_attn_dq_sm90.cu (K3): the CTA geometry, TMA tensor maps over BSHD
+// tensors, mbarriers, wgmma descriptors and instructions, and the
+// register-fragment helpers.
 //
-// Geometry.  A CTA owns 128 query rows of one (batch, head): two consumer
-// warpgroups of 64 rows each issue the wgmma products and keep their
-// softmax state and accumulators in registers; one producer warp issues the
-// TMA loads.  Head_dim is 64, so one bf16/fp16 row is 128 bytes: exactly
-// the TMA box width and the 128-byte swizzle atom that wgmma reads, and an
-// 8-row group is 1024 bytes.  Every tile is 1024-byte aligned in shared
+// Geometry.  A CTA owns 128 rows of one (batch, head) along its own axis --
+// query rows in K1 and K3, KV rows in K2: two consumer warpgroups of 64 rows
+// each issue the wgmma products and keep their softmax state and
+// accumulators in registers; one producer warp issues the TMA loads.
+// Head_dim is 64, so one bf16/fp16 row is 128 bytes: exactly the TMA box
+// width and the 128-byte swizzle atom that wgmma reads, and an 8-row group
+// is 1024 bytes.  Every tile is 1024-byte aligned in shared
 // memory so that the swizzle TMA writes is the one wgmma's descriptor names.
 //
 // Operands in shared memory (all 128-byte swizzled, rows of 128 bytes):
 // * K-major (the reduction runs along the 64 head_dim elements of a row):
-//   Q and dO as A, K and V as B of S = Q.K^T and dP = dO.V^T.  The k-th
-//   16-element slice starts 32 bytes further into the row.
-// * MN-major (the reduction runs down the rows): V as B of O += P.V and K
-//   as B of dQ += dS.K, with the transpose flag.  The k-th 16-row slice
-//   starts 16 rows (2048 bytes) further down.
+//   Q and dO as A, K and V as B of S = Q.K^T and dP = dO.V^T (K1, K3); K
+//   and V as A, Q and dO as B of the transposed S^T = K.Q^T and dP^T =
+//   V.dO^T (K2).  The k-th 16-element slice starts 32 bytes further into
+//   the row.
+// * MN-major (the reduction runs down the rows): V as B of O += P.V, K as B
+//   of dQ += dS.K, dO and Q as B of dV += P^T.dO and dK += dS^T.Q, with the
+//   transpose flag.  The k-th 16-row slice starts 16 rows (2048 bytes)
+//   further down.
 // The descriptor's stride offset is 1024 bytes (the next 8-row group); at
 // head_dim 64 no operand spans a second 128-byte column of atoms.
 //
@@ -42,10 +47,11 @@ namespace t2v_sm90 {
 
 constexpr int kHeadDim = 64;
 constexpr int kRowBytes = kHeadDim * 2;  // bf16 / fp16
-constexpr int kWgRows = 64;              // query rows of one warpgroup
+constexpr int kWgRows = 64;  // rows of one warpgroup on the CTA's own axis
 constexpr int kConsumerWarpgroups = 2;
 constexpr int kConsumerThreads = 128 * kConsumerWarpgroups;
 constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
+// rows a CTA owns: query rows in K1 and K3, KV rows in K2
 constexpr int kBlockM = kWgRows * kConsumerWarpgroups;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;

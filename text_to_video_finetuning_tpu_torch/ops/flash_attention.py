@@ -7,9 +7,10 @@ CUDA kernels replace the Pallas TPU kernels of
 * K1, the forward (`_fwd_kernel`): `csrc/flash_attn_fwd_sm90.cu` (TMA,
   wgmma, softmax and accumulators in registers) on the `sm90` route,
   `csrc/flash_attn_fwd.cu` (WMMA) on the `wmma` route;
+* K2, dK/dV (`_bwd_dkv_kernel`): `csrc/flash_attn_dkv_sm90.cu` on the
+  `sm90` route, `csrc/flash_attn_bwd.cu` on the `wmma` route;
 * K3, dQ (`_bwd_dq_kernel`): `csrc/flash_attn_dq_sm90.cu` on the `sm90`
-  route, `csrc/flash_attn_bwd.cu` on the `wmma` route;
-* K2, dK/dV (`_bwd_dkv_kernel`): `csrc/flash_attn_bwd.cu`.
+  route, `csrc/flash_attn_bwd.cu` on the `wmma` route.
 
 `flash_route(q)` picks the route from the inputs alone: `sm90` for bf16 /
 fp16 at head_dim 64 (every attention of the ms-1.7b UNet), `wmma` for fp32
@@ -29,7 +30,7 @@ PyTorch's current stream.
   `flash_attention_bwd_dq_cuda` (K3) and `flash_attention_bwd_cuda` (delta,
   then K2 and K3): the kernels, each beside its plain `*_reference`.  They
   raise on anything they do not take (CPU tensors included); they never
-  fall back.  K1 and K3 take an optional `route` (tests and `chip_smoke.py`
+  fall back.  Each takes an optional `route` (tests and `chip_smoke.py`
   time both routes on the same inputs with it).
 * `torch.ops.t2v.flash_attention_fwd(q, k, v, scale) -> (o, lse)`: K1 as a
   custom operator, with its backward (K2 + K3) registered as its autograd
@@ -60,13 +61,15 @@ ROUTES = ("sm90", "wmma")
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # kernel launches, counted by the wrappers where they launch (plain counts;
-# callers reset them by assignment): K1, K2 and K3 on any route, and K1 and
-# K3 by route
+# callers reset them by assignment): K1, K2 and K3 on any route, and each by
+# route
 launch_count = 0
 dkv_launch_count = 0
 dq_launch_count = 0
 fwd_sm90_launch_count = 0
 fwd_wmma_launch_count = 0
+dkv_sm90_launch_count = 0
+dkv_wmma_launch_count = 0
 dq_sm90_launch_count = 0
 dq_wmma_launch_count = 0
 
@@ -100,16 +103,21 @@ def _load() -> Dict[str, ctypes.CDLL]:
             fwd90.t2v_flash_attn_fwd_sm90.argtypes = \
                 fwd.t2v_flash_attn_fwd.argtypes
             fwd90.t2v_flash_attn_fwd_sm90.restype = i
+            dkv90 = ctypes.CDLL(paths["flash_attn_dkv_sm90"])
+            dkv90.t2v_flash_attn_dkv_sm90.argtypes = \
+                bwd.t2v_flash_attn_bwd_dkv.argtypes
+            dkv90.t2v_flash_attn_dkv_sm90.restype = i
             dq90 = ctypes.CDLL(paths["flash_attn_dq_sm90"])
             dq90.t2v_flash_attn_dq_sm90.argtypes = \
                 bwd.t2v_flash_attn_bwd_dq.argtypes
             dq90.t2v_flash_attn_dq_sm90.restype = i
             for lib, name in ((fwd90, "t2v_flash_fwd_sm90_error_string"),
+                              (dkv90, "t2v_flash_dkv_sm90_error_string"),
                               (dq90, "t2v_flash_dq_sm90_error_string")):
                 getattr(lib, name).argtypes = [i]
                 getattr(lib, name).restype = ctypes.c_char_p
             _libs = {"fwd": fwd, "bwd": bwd, "fwd_sm90": fwd90,
-                     "dq_sm90": dq90}
+                     "dkv_sm90": dkv90, "dq_sm90": dq90}
         return _libs
 
 
@@ -222,7 +230,7 @@ def _strides(*tensors) -> ctypes.Array:
 
 
 def flash_route(q: torch.Tensor) -> str:
-    """The kernel route of a K1 / K3 call, from the inputs alone: `sm90`
+    """The kernel route of a K1, K2 or K3 call, from the inputs alone: `sm90`
     (TMA + wgmma) for bf16 / fp16 at head_dim 64, `wmma` otherwise."""
     if (q.dtype in (torch.bfloat16, torch.float16)
             and q.shape[-1] == SM90_HEAD_DIM):
@@ -264,12 +272,16 @@ def _tma_strides(names, *tensors) -> list:
     return vals
 
 
-# (library, entry point, its error-string function) of K1 (`fwd`) and K3
-# (`dq`) on each route
+# (library, entry point, its error-string function) of K1 (`fwd`), K2
+# (`dkv`) and K3 (`dq`) on each route
 _ENTRIES = {
     ("fwd", "sm90"): ("fwd_sm90", "t2v_flash_attn_fwd_sm90",
                       "t2v_flash_fwd_sm90_error_string"),
     ("fwd", "wmma"): ("fwd", "t2v_flash_attn_fwd", "t2v_cuda_error_string"),
+    ("dkv", "sm90"): ("dkv_sm90", "t2v_flash_attn_dkv_sm90",
+                      "t2v_flash_dkv_sm90_error_string"),
+    ("dkv", "wmma"): ("bwd", "t2v_flash_attn_bwd_dkv",
+                      "t2v_flash_bwd_error_string"),
     ("dq", "sm90"): ("dq_sm90", "t2v_flash_attn_dq_sm90",
                      "t2v_flash_dq_sm90_error_string"),
     ("dq", "wmma"): ("bwd", "t2v_flash_attn_bwd_dq",
@@ -278,17 +290,18 @@ _ENTRIES = {
 
 
 def _entry(kernel: str, route: str):
-    """(entry point, error-string function) of K1 / K3 on `route`."""
+    """(entry point, error-string function) of `kernel` on `route`."""
     lib_name, fn, errstr = _ENTRIES[kernel, route]
     lib = _load()[lib_name]
     return getattr(lib, fn), getattr(lib, errstr)
 
 
 def _count(kernel: str, route: str):
-    """One launch of K1 (`fwd`) or K3 (`dq`) on `route`: its total and its
-    route's counter."""
+    """One launch of K1 (`fwd`), K2 (`dkv`) or K3 (`dq`) on `route`: its
+    total and its route's counter."""
     counts = globals()
-    counts["launch_count" if kernel == "fwd" else "dq_launch_count"] += 1
+    counts["launch_count" if kernel == "fwd"
+           else f"{kernel}_launch_count"] += 1
     counts[f"{kernel}_{route}_launch_count"] += 1
 
 
@@ -299,8 +312,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's dtype, lse (B, H, Sq) fp32).  Raises on CPU tensors, unsupported
     dtypes/shapes, unaligned strides on the sm90 route, a failed build or a
     refused launch."""
-    _check("qkv", q, k, v)
     route = _pick_route(route, q)
+    _check("qkv", q, k, v)
     strides = (_tma_strides("qkv", q, k, v) if route == "sm90"
                else [s for t in (q, k, v) for s in t.stride()[:3]])
     launch, errstr = _entry("fwd", route)
@@ -331,34 +344,41 @@ def _check_bwd(q, k, v, do, lse, delta):
                              f"{q.device}")
 
 
-def _bwd_error(lib, err: int, which: str):
+def _launch_bwd(kernel: str, route: str, q, k, v, do, lse, delta,
+                outs, scale: float):
+    """Launch K2 (`dkv`, outs = (dk, dv)) or K3 (`dq`, outs = (dq,)) on
+    `route` and count it; raises if the launch fails."""
+    names = ("q", "k", "v", "dO")
+    vals = (_tma_strides(names, q, k, v, do) if route == "sm90"
+            else [s for t in (q, k, v, do) for s in t.stride()[:3]])
+    launch, errstr = _entry(kernel, route)
+    b, sq, h, d = q.shape
+    with torch.cuda.device(q.device):
+        err = launch(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outs), b, h, sq, k.shape[1], d,
+            (ctypes.c_longlong * len(vals))(*vals), _strides(*outs),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn_bwd {which} launch failed: "
-                           + lib.t2v_flash_bwd_error_string(err).decode())
+        raise RuntimeError(f"flash attention {kernel} ({route}) launch "
+                           "failed: " + errstr(err).decode())
+    _count(kernel, route)
 
 
 def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, do: torch.Tensor,
                                  lse: torch.Tensor, delta: torch.Tensor,
-                                 scale: float
+                                 scale: float, route: Optional[str] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 on q, k, v, dO (BSHD, one dtype), the forward's lse and
-    delta ((B, H, Sq) fp32): returns (dk, dv), contiguous BSHD."""
-    global dkv_launch_count
+    delta ((B, H, Sq) fp32), on `route` (default `flash_route(q)`): returns
+    (dk, dv), contiguous BSHD."""
+    route = _pick_route(route, q)
     _check_bwd(q, k, v, do, lse, delta)
-    lib = _load()["bwd"]
-    b, sq, h, d = q.shape
     dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
               for t in (k, v))
-    with torch.cuda.device(q.device):
-        err = lib.t2v_flash_attn_bwd_dkv(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, sq, k.shape[1], d, _strides(q, k, v, do),
-            _strides(dk, dv), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _bwd_error(lib, err, "dK/dV")
-    dkv_launch_count += 1
+    _launch_bwd("dkv", route, q, k, v, do, lse, delta, (dk, dv), scale)
     return dk, dv
 
 
@@ -369,26 +389,10 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
                                 ) -> torch.Tensor:
     """Launch K3 on the same inputs as K2, on `route` (default
     `flash_route(q)`): returns dq, contiguous BSHD."""
-    _check_bwd(q, k, v, do, lse, delta)
     route = _pick_route(route, q)
-    if route == "sm90":
-        vals = _tma_strides(("q", "k", "v", "dO"), q, k, v, do)
-        strides = (ctypes.c_longlong * len(vals))(*vals)
-    else:
-        strides = _strides(q, k, v, do)
-    launch, errstr = _entry("dq", route)
-    b, sq, h, d = q.shape
+    _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    with torch.cuda.device(q.device):
-        err = launch(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, h, sq, k.shape[1], d, strides, _strides(dq), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention dQ ({route}) launch failed: "
-                           + errstr(err).decode())
-    _count("dq", route)
+    _launch_bwd("dq", route, q, k, v, do, lse, delta, (dq,), scale)
     return dq
 
 

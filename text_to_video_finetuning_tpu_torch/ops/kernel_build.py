@@ -3,9 +3,10 @@
 `build()` compiles every `csrc/*.cu` with nvcc for sm_90a, one process per
 source, all started together, into shared libraries under `_build/` (each
 keyed by a hash of its source, every `*.cuh` header beside it and the
-flags, so an edited header builds anew).  Every library exposes plain C
-entry points; each ops module loads its own with ctypes and calls it on
-PyTorch's current stream.  Nothing is built at import: the first kernel call
+flags, so an edited header builds anew).  Beside each library goes ptxas's
+report of its kernels (registers, spills, wgmma serialization):
+`ptxas_report()`.  Every library exposes plain C entry points; each ops
+module loads its own with ctypes and calls it on PyTorch's current stream.  Nothing is built at import: the first kernel call
 builds, and `chip_smoke.py` builds everything up front.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _build_lock = threading.Lock()
 
@@ -57,6 +59,23 @@ def _lib_path(name: str, source: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
 
 
+def _report_path(lib: str) -> str:
+    return os.path.splitext(lib)[0] + ".ptxas.txt"
+
+
+def ptxas_report(lib: str) -> Dict[str, object]:
+    """What ptxas said of the kernels of a library `build()` made: the most
+    registers a kernel uses, the spilled bytes (stores) over all kernels,
+    and whether it serialized any wgmma (a "Potential Performance Loss")."""
+    with open(_report_path(lib)) as f:
+        text = f.read()
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
+    return {"registers": max(regs, default=0), "spill_bytes": sum(spills),
+            "wgmma_serialized": "wgmma.mma_async instructions are serialized"
+                                in text}
+
+
 def build(force: bool = False) -> Dict[str, str]:
     """Compile every `csrc/*.cu` that is not built yet (all of them with
     `force`), one nvcc process per source, all started together.  Returns
@@ -80,6 +99,8 @@ def build(force: bool = False) -> Dict[str, str]:
                 failures.append(f"nvcc failed on {name}.cu "
                                 f"({proc.returncode}):\n{out}")
             else:
+                with open(_report_path(paths[name]), "w") as f:
+                    f.write(out)
                 os.replace(tmp, paths[name])
         if failures:
             raise RuntimeError("\n".join(failures))

@@ -36,9 +36,11 @@ import time
 
 import torch
 
-# kernel-name patterns, first match wins
+# kernel-name patterns, first match wins; the flash family takes every
+# flash kernel of csrc/ on both routes (flash_fwd_*, flash_bwd_dkv_*,
+# flash_bwd_dq_*, flash_dkv_*, flash_dq_*)
 FAMILIES = [
-    ("flash K1/K2/K3", r"flash_(fwd|bwd)"),
+    ("flash K1/K2/K3", r"flash_(fwd|bwd|dkv|dq)_"),
     ("GroupNorm K4/K5", r"gn_silu_(fwd|bwd)"),
     ("convolution", r"conv|cudnn|implicit_gemm|xmma_fprop|dgrad|wgrad"),
     ("matmul", r"gemm|cutlass|sm90_xmma|ampere|magma|splitK|nvjet"),
