@@ -35,12 +35,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (as in phases 10-13);
   8. the backward in context: one pass's LoRA gradients at full width, flash
      vs plain attention, with fp32 and with bf16 weights;
-  9. K4 and K5 against the plain pair, fp32 and bf16, dy = cos(y), on small
-     shapes (ragged slabs, G = 4 / 8 / 32) and on every distinct GroupNorm
-     shape of the 256 px and the 576x320 training steps (derived from the
-     model); timed beside the plain pair and the two library calls the
-     unfused model makes (`F.group_norm` then `F.silu`, and their autograd
-     backward) at the largest 256 px training norm;
+  9. K4 and K5 on both routes (`sm90` where `gn_route` takes the shape,
+     `simt` everywhere) against the plain pair, fp32 and bf16, dy = cos(y),
+     on small shapes (ragged slabs, G = 4 / 8 / 32) and on every distinct
+     GroupNorm shape of the 256 px and the 576x320 training steps (derived
+     from the model), each run twice and held bitwise equal; each sm90
+     plan checked with cudaOccupancyMaxActiveClusters; then, at every step
+     shape in bf16, both routes timed beside the plain pair, the two
+     library calls the unfused model makes (`F.group_norm` then `F.silu`,
+     and their autograd backward) and the bound, with the launch-weighted
+     sums per headline step at 256 px and 576x320, and the sm90 route timed
+     at each cluster size at the largest norm of each step;
  10. training at bench.py's headline, `build(remat_policy=
      "conv_attn_dense+skiplow3", fused_groupnorm=True)`: one warm and four
      timed steps, launches checked per step;
@@ -55,8 +60,11 @@ The last two lines are the kernels record and the device record (JSON).
 K1, K2 and K3 run on two routes (ops/flash_attention.py::flash_route):
 `sm90` (csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dkv_sm90.cu,
 csrc/flash_attn_dq_sm90.cu) for bf16 / fp16 at head_dim 64, `wmma`
-(csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) for the rest; the run
-fails if the main path sends any K1, K2 or K3 launch to `wmma`.
+(csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) for the rest; K4 and K5
+too (ops/groupnorm.py::gn_route): `sm90` (csrc/groupnorm_silu_sm90.cu)
+where a cluster's shared memory holds the slab, `simt`
+(csrc/groupnorm_silu.cu) for the rest.  The run fails if the main path
+sends any K1, K2 or K3 launch to `wmma` or any K4 / K5 launch to `simt`.
 Timings are smoke timings, not a benchmark: kernel times are device time by
 CUDA events with the card kept busy while the host enqueues (`cuda_ms`),
 step and request times host clock.
@@ -117,6 +125,7 @@ GN_SMALL = [
     ("odd_9x11_g8", (2, 24, 9, 11), 8),
 ]
 GN_TIMED = (16, 960, 32, 32)    # the largest 256 px training norm
+GN_HIRES = (16, 960, 40, 72)    # the largest 576x320 training norm
 GN_EPS = 1e-5                   # UNET3D_MS_1_7B_CONFIG.norm_eps
 GN_FP32_TOL = 1e-4              # max |d y|, |d mean|, |d rstd|, |d dx|
 GN_BF16_EXCESS = 1.5            # bf16 kernel error / bf16 plain error
@@ -524,7 +533,16 @@ def counters():
             "K2_sm90": (fa, "dkv_sm90_launch_count"),
             "K2_wmma": (fa, "dkv_wmma_launch_count"),
             "K3_sm90": (fa, "dq_sm90_launch_count"),
-            "K3_wmma": (fa, "dq_wmma_launch_count")}
+            "K3_wmma": (fa, "dq_wmma_launch_count"),
+            "K4_sm90": (gn, "fwd_sm90_launch_count"),
+            "K4_simt": (gn, "fwd_simt_launch_count"),
+            "K5_sm90": (gn, "bwd_sm90_launch_count"),
+            "K5_simt": (gn, "bwd_simt_launch_count")}
+
+
+# the other route of each kernel: every main-path launch must take `sm90`
+OFF_ROUTE = {"K1": "wmma", "K2": "wmma", "K3": "wmma", "K4": "simt",
+             "K5": "simt"}
 
 
 def read_counts():
@@ -553,6 +571,28 @@ def level_hw(lh, lw, level):
     return lh, lw
 
 
+def norm_launches(unet, n, latent_hw, passes):
+    """{x shape: [K4, K5]} per training step, for every fused GroupNorm of
+    `unet` (two per ResnetBlock2D) at batch*frames `n`: K4 once in each
+    pass's forward and again in a checkpointed block's recompute (no policy
+    saves a norm's output), K5 once per forward norm, since every norm's
+    input depends on the LoRA (transformer_in at F > 1 is a LoRA site)."""
+    from text_to_video_finetuning_tpu_torch.models.resnet import (
+        FusedGroupNormSiLU)
+
+    counts = {}
+    for block, level in unet_levels(unet):
+        h, w = level_hw(*latent_hw, level)
+        for r in block.resnets:
+            for m in r.children():
+                if isinstance(m, FusedGroupNormSiLU):
+                    c = counts.setdefault((n, m.num_channels, h, w), [0, 0])
+                    c[0] += passes * (2 if block.gradient_checkpointing
+                                      else 1)
+                    c[1] += passes
+    return counts
+
+
 def expected_train_launches(unet, batch, cfg):
     """Per-step launch counts derived from the model, block by block:
     - K1 runs on a spatial self-attention whose level has H*W >= 1024
@@ -560,19 +600,14 @@ def expected_train_launches(unet, batch, cfg):
       `auto` keeps them plain), once in each pass's forward and once more
       when checkpointing recomputes its unit, unless the block's policy
       saves `attn_out`; K2 and K3 run once per K1 forward;
-    - K4 runs on each fused GroupNorm (two per ResnetBlock2D) in each
-      pass's forward and again in a checkpointed block's recompute (no
-      policy saves a norm's output); K5 once per forward norm, since every
-      norm's input depends on the LoRA (transformer_in at F > 1 is a LoRA
-      site)."""
+    - K4 and K5 as `norm_launches` counts them."""
     from text_to_video_finetuning_tpu_torch.models.remat import (
         ATTN_TAG, REMAT_POLICIES)
-    from text_to_video_finetuning_tpu_torch.models.resnet import (
-        FusedGroupNormSiLU)
 
-    _, _, frames, lh, lw = batch["pixel_values"].shape
+    b, _, frames, lh, lw = batch["pixel_values"].shape
     passes = 2 if frames > 1 and cfg.two_pass else 1
-    k1 = k2 = k4 = k5 = 0
+    norms = norm_launches(unet, b * frames, (lh, lw), passes).values()
+    k1 = k2 = 0
     for block, level in unet_levels(unet):
         h, w = level_hw(lh, lw, level)
         ckpt = block.gradient_checkpointing
@@ -581,12 +616,8 @@ def expected_train_launches(unet, batch, cfg):
         flash = len(getattr(block, "attentions", ())) if h * w >= 1024 else 0
         k2 += flash
         k1 += flash * (2 if ckpt and not attn_saved else 1)
-        norms = sum(isinstance(m, FusedGroupNormSiLU)
-                    for r in block.resnets for m in r.children())
-        k5 += norms
-        k4 += norms * (2 if ckpt else 1)
     return {"K1": passes * k1, "K2": passes * k2, "K3": passes * k2,
-            "K4": passes * k4, "K5": passes * k5}
+            "K4": sum(c[0] for c in norms), "K5": sum(c[1] for c in norms)}
 
 
 def train_path(label, kwargs, timed, check_base=False, norm_shapes=None):
@@ -655,13 +686,13 @@ def train_path(label, kwargs, timed, check_base=False, norm_shapes=None):
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss0 "
               f"{loss0:.6f} loss1 {loss1:.6f} grad_norm "
               f"{metrics['grad_norm'].item():.4e}, launches {got} "
-              f"(expected {expected}), K1-K3 by route {by_route}")
+              f"(expected {expected}), by route {by_route}")
         if got != expected:
             fail(f"[{label}] train step {i}: launches {got}, expected "
                  f"{expected}")
-        if any(by_route[f"{k}_wmma"] or by_route[f"{k}_sm90"] != got[k]
-               for k in ("K1", "K2", "K3")):
-            fail(f"[{label}] train step {i}: K1-K3 not all on the sm90 "
+        if any(by_route[f"{k}_{off}"] or by_route[f"{k}_sm90"] != got[k]
+               for k, off in OFF_ROUTE.items()):
+            fail(f"[{label}] train step {i}: K1-K5 not all on the sm90 "
                  f"route: {by_route}")
         if not (torch.isfinite(torch.tensor([loss0, loss1])).all()):
             fail(f"[{label}] train step {i}: non-finite loss")
@@ -766,23 +797,21 @@ def grads_fused_vs_unfused(fused, unfused):
              f"unfused {err_unfused} by more than {UNET_BF16_EXCESS}x")
 
 
-def step_norm_shapes(frames, latent_hw, batch=1):
-    """Every distinct input shape of the fused GroupNorms in a training
-    step of the ms-1.7b UNet at these latents (the model built on the meta
-    device)."""
+def headline_norm_launches(frames, latent_hw, batch=1):
+    """({x shape: [K4, K5]} of a headline training step (bench.py's remat
+    policy, fused GroupNorm, two passes) of the ms-1.7b UNet at these
+    latents, by `norm_launches` on the model built on the meta device;
+    the groups)."""
     from text_to_video_finetuning_tpu_torch.models.unet3d import (
         UNET3D_MS_1_7B_CONFIG, UNet3DConditionModel)
 
     with torch.device("meta"):
         unet = UNet3DConditionModel(UNET3D_MS_1_7B_CONFIG,
                                     fused_groupnorm=True)
-    shapes = set()
-    for block, level in unet_levels(unet):
-        h, w = level_hw(*latent_hw, level)
-        for r in block.resnets:
-            for norm in (r.norm1, r.norm2):
-                shapes.add((batch * frames, norm.num_channels, h, w))
-    return sorted(shapes), unet.config.norm_num_groups
+    unet.set_gradient_checkpointing(True, HEADLINE)
+    passes = 2 if frames > 1 else 1
+    return (norm_launches(unet, batch * frames, latent_hw, passes),
+            unet.config.norm_num_groups)
 
 
 def gn_bound(kind, shape, groups, dtype):
@@ -801,107 +830,230 @@ def gn_bound(kind, shape, groups, dtype):
             "operations" if t_ops > t_bytes else "bytes", nbytes)
 
 
-def check_k4_k5(gn, shapes, groups):
-    """Phase 9: K4 and K5 against the plain pair on GN_SMALL and `shapes`
-    (the training steps'), fp32 and bf16, dy = cos(y).  fp32: max |d| <=
-    GN_FP32_TOL on y, mean, rstd and dx (and, on the small shapes, on
-    dgamma / dbeta relative to max(1, max |ref|)).  bf16 x, dy and
-    parameters: the kernels' y and dx errors against the fp32 plain result
-    within GN_BF16_EXCESS of the plain bf16 pair's.  Then times both
-    kernels at GN_TIMED (bf16, dx only, as the training step calls K5)
-    beside the plain pair and the library's two calls.  Returns
-    {'K4': rec, 'K5': rec}."""
+def gn_inputs(g, shape):
+    x = torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3
+    c = shape[1]
+    w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    b = 0.1 * torch.randn(c, device="cuda", generator=g)
+    return x, w, b
+
+
+def max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def check_gn_shape(gn, label, shape, G, small):
+    """Phase 9a at one shape: K4 and K5 on each route that takes it against
+    the plain pair.  fp32: max |d| <= GN_FP32_TOL on y, mean, rstd and dx
+    (and, on the small shapes, on dgamma / dbeta relative to max(1, max
+    |ref|)).  bf16 x, dy and parameters: y and dx against the fp32 plain
+    result within GN_BF16_EXCESS of the plain bf16 pair's error.  Every
+    route's bf16 K4 and K5 run twice and must agree bitwise.  Returns
+    {route: {'K4': bf16 error, 'K5': ...}} and the plain bf16 errors."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x, w, b = gn_inputs(g, shape)
+    ref = gn.group_norm_silu_reference(x, w, b, G, GN_EPS)
+    dy = torch.cos(ref[0])
+    bref = gn.group_norm_silu_bwd_reference(x, w, b, ref[1], ref[2], dy, G)
+    x16, w16, b16, dy16 = (t.bfloat16() for t in (x, w, b, dy))
+    p16 = gn.group_norm_silu_reference(x16, w16, b16, G, GN_EPS)
+    pdx16 = gn.group_norm_silu_bwd_reference(x16, w16, b16, p16[1], p16[2],
+                                             dy16, G)[0]
+    plain = {"K4": max_err(p16[0], ref[0]), "K5": max_err(pdx16, bref[0])}
+    def takes(route, dtype):
+        return route == "simt" or all(
+            gn.gn_route(kind, shape, G, dtype) == "sm90"
+            for kind in ("fwd", "bwd"))
+
+    errs = {}
+    for route in gn.ROUTES:
+        if not takes(route, torch.bfloat16):
+            continue
+        e_fwd = e_dx = e_aff = 0.0
+        if takes(route, torch.float32):
+            got = gn.group_norm_silu_fwd_cuda(x, w, b, G, GN_EPS,
+                                              route=route)
+            bgot = gn.group_norm_silu_bwd_cuda(x, w, b, ref[1], ref[2], dy, G,
+                                               affine_grads=small,
+                                               route=route)
+            e_fwd = max(max_err(a, r) for a, r in zip(got, ref))
+            e_dx = max_err(bgot[0], bref[0])
+            if small:
+                e_aff = max(max_err(a, r) / max(1.0, r.abs().max().item())
+                            for a, r in zip(bgot[1:], bref[1:]))
+        runs = []
+        for _ in range(2):
+            y16, m16, r16 = gn.group_norm_silu_fwd_cuda(x16, w16, b16, G,
+                                                        GN_EPS, route=route)
+            dx16 = gn.group_norm_silu_bwd_cuda(
+                x16, w16, b16, m16, r16, dy16, G, affine_grads=False,
+                route=route)[0]
+            runs.append((y16, m16, r16, dx16))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(*runs)):
+            fail(f"K4/K5 {route} at {label}: two runs differ")
+        e16 = {"K4": max_err(runs[0][0], ref[0]),
+               "K5": max_err(runs[0][3], bref[0])}
+        print(f"K4/K5 {label} {tuple(shape)} G={G} [{route}]: fp32 max|d "
+              f"y,mean,rstd|={e_fwd:.3e} max|d dx|={e_dx:.3e}"
+              + (f" dgamma/dbeta rel {e_aff:.3e}" if small else "")
+              + f"; bf16 y {e16['K4']:.3e} vs plain {plain['K4']:.3e}, dx "
+              f"{e16['K5']:.3e} vs plain {plain['K5']:.3e}; bitwise "
+              "repeatable")
+        if max(e_fwd, e_dx, e_aff) > GN_FP32_TOL:
+            fail(f"K4/K5 {route} disagree with the plain pair at {label}")
+        for k in ("K4", "K5"):
+            if not e16[k] <= GN_BF16_EXCESS * plain[k]:
+                fail(f"{k} {route} bf16 at {label}: {e16[k]} against plain "
+                     f"{plain[k]}")
+        errs[route] = e16
+    return errs, plain
+
+
+def time_gn_shape(gn, shape, G):
+    """Phase 9b at one step shape, bf16 (K5 dx only, as the training step
+    calls it): {'K4': rec, 'K5': rec}, each with the sm90 (`ms`) and simt
+    times, the plain pair's, the library pair's and the bound."""
     import torch.nn.functional as F
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    cases = GN_SMALL + [(f"step_{'x'.join(map(str, s))}", s, groups)
-                        for s in shapes]
-    worst = {"K4": 0.0, "K5": 0.0}
-    worst_ratio = {"K4": 0.0, "K5": 0.0}
-    for label, shape, G in cases:
-        small = label in {c[0] for c in GN_SMALL}
-        x = torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3
-        c = shape[1]
-        w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
-        b = 0.1 * torch.randn(c, device="cuda", generator=g)
-        ref = gn.group_norm_silu_reference(x, w, b, G, GN_EPS)
-        got = gn.group_norm_silu_fwd_cuda(x, w, b, G, GN_EPS)
-        dy = torch.cos(ref[0])
-        bref = gn.group_norm_silu_bwd_reference(x, w, b, ref[1], ref[2], dy,
-                                                G)
-        bgot = gn.group_norm_silu_bwd_cuda(x, w, b, ref[1], ref[2], dy, G,
-                                           affine_grads=small)
-        torch.cuda.synchronize()
-        e_fwd = max((a - r).abs().max().item() for a, r in zip(got, ref))
-        e_dx = (bgot[0] - bref[0]).abs().max().item()
-        e_aff = 0.0
-        if small:
-            e_aff = max((a - r).abs().max().item()
-                        / max(1.0, r.abs().max().item())
-                        for a, r in zip(bgot[1:], bref[1:]))
-        x16, w16, b16, dy16 = (t.bfloat16() for t in (x, w, b, dy))
-        y16, m16, r16 = gn.group_norm_silu_fwd_cuda(x16, w16, b16, G, GN_EPS)
-        p16 = gn.group_norm_silu_reference(x16, w16, b16, G, GN_EPS)
-        dx16 = gn.group_norm_silu_bwd_cuda(x16, w16, b16, m16, r16, dy16, G,
-                                           affine_grads=False)[0]
-        pdx16 = gn.group_norm_silu_bwd_reference(x16, w16, b16, p16[1],
-                                                 p16[2], dy16, G)[0]
-        torch.cuda.synchronize()
-        e16 = {"K4": (y16.float() - ref[0]).abs().max().item(),
-               "K5": (dx16.float() - bref[0]).abs().max().item()}
-        p16e = {"K4": (p16[0].float() - ref[0]).abs().max().item(),
-                "K5": (pdx16.float() - bref[0]).abs().max().item()}
-        print(f"K4/K5 {label} {tuple(shape)} G={G}: fp32 max|d y,mean,rstd|"
-              f"={e_fwd:.3e} max|d dx|={e_dx:.3e}"
-              + (f" dgamma/dbeta rel {e_aff:.3e}" if small else "")
-              + f"; bf16 y {e16['K4']:.3e} vs plain {p16e['K4']:.3e}, dx "
-              f"{e16['K5']:.3e} vs plain {p16e['K5']:.3e}")
-        if max(e_fwd, e_dx, e_aff) > GN_FP32_TOL:
-            fail(f"K4/K5 disagree with the plain pair at {label}")
-        for k in ("K4", "K5"):
-            if not e16[k] <= GN_BF16_EXCESS * p16e[k]:
-                fail(f"{k} bf16 at {label}: {e16[k]} against plain "
-                     f"{p16e[k]}")
-            worst[k] = max(worst[k], e16[k])
-            worst_ratio[k] = max(worst_ratio[k], e16[k] / p16e[k])
-    print(f"K4/K5: {len(cases)} shapes; worst bf16 error / plain bf16 error "
-          f"K4 {worst_ratio['K4']:.3f}, K5 {worst_ratio['K5']:.3f}")
-
-    x = torch.randn(GN_TIMED, device="cuda", generator=g).bfloat16()
-    c = GN_TIMED[1]
-    w = (1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)).bfloat16()
-    b = (0.1 * torch.randn(c, device="cuda", generator=g)).bfloat16()
-    y, mean, rstd = gn.group_norm_silu_fwd_cuda(x, w, b, groups, GN_EPS)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x, w, b = (t.bfloat16() for t in gn_inputs(g, shape))
+    y, mean, rstd = gn.group_norm_silu_fwd_cuda(x, w, b, G, GN_EPS)
     dy = torch.cos(y.float()).bfloat16()
+    times = {}
     with torch.no_grad():
-        k4_ms = cuda_ms(lambda: gn.group_norm_silu_fwd_cuda(x, w, b, groups,
-                                                            GN_EPS))
-        k4_plain = cuda_ms(lambda: gn.group_norm_silu_reference(
-            x, w, b, groups, GN_EPS))
-        k4_lib = cuda_ms(lambda: F.silu(F.group_norm(x, groups, w, b,
-                                                     GN_EPS)))
-        k5_ms = cuda_ms(lambda: gn.group_norm_silu_bwd_cuda(
-            x, w, b, mean, rstd, dy, groups, affine_grads=False))
-        k5_plain = cuda_ms(lambda: gn.group_norm_silu_bwd_reference(
-            x, w, b, mean, rstd, dy, groups))
+        for route in gn.ROUTES:
+            times["K4", route] = cuda_ms(lambda: gn.group_norm_silu_fwd_cuda(
+                x, w, b, G, GN_EPS, route=route))
+            times["K5", route] = cuda_ms(lambda: gn.group_norm_silu_bwd_cuda(
+                x, w, b, mean, rstd, dy, G, affine_grads=False, route=route))
+        times["K4", "plain"] = cuda_ms(lambda: gn.group_norm_silu_reference(
+            x, w, b, G, GN_EPS))
+        times["K5", "plain"] = cuda_ms(
+            lambda: gn.group_norm_silu_bwd_reference(x, w, b, mean, rstd, dy,
+                                                     G))
+        times["K4", "library"] = cuda_ms(lambda: F.silu(F.group_norm(
+            x, G, w, b, GN_EPS)))
     xr = x.detach().requires_grad_()
-    y_lib = F.silu(F.group_norm(xr, groups, w, b, GN_EPS))
-    k5_lib = cuda_ms(lambda: torch.autograd.grad(y_lib, xr, dy,
-                                                 retain_graph=True))
+    y_lib = F.silu(F.group_norm(xr, G, w, b, GN_EPS))
+    times["K5", "library"] = cuda_ms(lambda: torch.autograd.grad(
+        y_lib, xr, dy, retain_graph=True))
     out = {}
-    for k, ms, plain_ms, lib_ms in (("K4", k4_ms, k4_plain, k4_lib),
-                                    ("K5", k5_ms, k5_plain, k5_lib)):
-        bound_ms, bound_by, nbytes = gn_bound(k, GN_TIMED, groups,
-                                              torch.bfloat16)
-        out[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                      bound_ms=bound_ms, bound_by=bound_by,
-                      max_abs_err=worst[k])
-        print(f"{k} {GN_TIMED} bf16: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library (two calls: F.group_norm then "
-              f"F.silu{', autograd backward' if k == 'K5' else ''}) "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s); {nbytes / ms / 1e6:.1f}"
-              " GB/s achieved (CUDA events, median of 10)")
+    for k, kind in (("K4", "fwd"), ("K5", "bwd")):
+        bound_ms, bound_by, nbytes = gn_bound(k, shape, G, torch.bfloat16)
+        plan = gn.gn_plan(kind, shape, G, torch.bfloat16)
+        out[k] = dict(ms=times[k, "sm90"], simt_ms=times[k, "simt"],
+                      plain_ms=times[k, "plain"],
+                      library_ms=times[k, "library"], bound_ms=bound_ms,
+                      bound_by=bound_by, cluster=plan.cluster)
+        print(f"{k} {tuple(shape)} bf16: sm90 {times[k, 'sm90']:.4f} ms "
+              f"(cluster {plan.cluster}, {plan.threads} threads; "
+              f"{100 * bound_ms / times[k, 'sm90']:.1f} % of bound), simt "
+              f"{times[k, 'simt']:.4f} ms (sm90 / simt = "
+              f"{times[k, 'sm90'] / times[k, 'simt']:.3f}), plain "
+              f"{times[k, 'plain']:.4f} ms, library {times[k, 'library']:.4f}"
+              f" ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+    return out
+
+
+def check_k4_k5(gn, geometries):
+    """Phase 9: K4 and K5 on both routes against the plain pair on GN_SMALL
+    and on the step shapes of `geometries` ({name: ({shape: [K4, K5]
+    launches per headline step}, groups)}); each sm90 plan against
+    cudaOccupancyMaxActiveClusters; then every step shape timed in bf16,
+    the launch-weighted sums per headline step, and the plan sweep at the
+    largest norm of each step.  Returns {'K4': rec, 'K5': rec} for the
+    kernels line: GN_TIMED's times, the 576x320 level-0 norm's
+    (`hires_shape`), the per-step sums (`per_step`)."""
+    cases = [(label, shape, G, True) for label, shape, G in GN_SMALL]
+    for name, (launches, groups) in geometries.items():
+        cases += [(f"step_{'x'.join(map(str, s))}", s, groups, False)
+                  for s in sorted(launches) if s not in
+                  {c[1] for c in cases}]
+    worst = {"sm90": {"K4": 0.0, "K5": 0.0}, "simt": {"K4": 0.0, "K5": 0.0}}
+    ratio = 0.0
+    for label, shape, G, small in cases:
+        errs, plain = check_gn_shape(gn, label, shape, G, small)
+        for route, e16 in errs.items():
+            for k in e16:
+                worst[route][k] = max(worst[route][k], e16[k])
+                ratio = max(ratio, e16[k] / plain[k])
+        torch.cuda.empty_cache()
+    print(f"K4/K5: {len(cases)} shapes on both routes where sm90 takes them;"
+          f" worst bf16 error / plain bf16 error {ratio:.3f}")
+
+    # the plans against the card's occupancy
+    for name, (launches, groups) in geometries.items():
+        for shape in sorted(launches):
+            for kind in ("fwd", "bwd"):
+                plan = gn.gn_plan(kind, shape, groups, torch.bfloat16)
+                if plan is None:
+                    fail(f"no sm90 plan for the step's {kind} at {shape}")
+                active = gn.max_active_clusters(kind, plan, torch.bfloat16)
+                print(f"plan {kind} {tuple(shape)} bf16: cluster "
+                      f"{plan.cluster}, {plan.threads} threads, "
+                      f"{plan.smem_bytes} B shared a CTA, modelled "
+                      f"{plan.ctas_per_sm} CTAs an SM "
+                      f"({gn.SMS * plan.ctas_per_sm // plan.cluster} clusters,"
+                      f" {plan.waves:.2f} waves); the card holds {active} "
+                      "clusters")
+                if active < 1:
+                    fail(f"the card holds no cluster of the {kind} plan at "
+                         f"{shape}")
+
+    timed, per_step = {}, {}
+    for name, (launches, groups) in geometries.items():
+        sums = {k: dict(launches=0, ms=0.0, simt_ms=0.0, bound_ms=0.0,
+                        library_ms=0.0) for k in ("K4", "K5")}
+        for shape, counts in sorted(launches.items()):
+            if shape not in timed:
+                timed[shape] = time_gn_shape(gn, shape, groups)
+                torch.cuda.empty_cache()
+            for k, n in zip(("K4", "K5"), counts):
+                rec = timed[shape][k]
+                sums[k]["launches"] += n
+                for key in ("ms", "simt_ms", "bound_ms", "library_ms"):
+                    sums[k][key] += n * rec[key]
+        per_step[name] = sums
+        for k, rec in sums.items():
+            print(f"{k} per headline step at {name}: {rec['launches']} "
+                  f"launches, sm90 {rec['ms']:.4f} ms, simt "
+                  f"{rec['simt_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                  f"(sm90 at {100 * rec['bound_ms'] / rec['ms']:.1f} %), "
+                  f"library {rec['library_ms']:.4f} ms (launches x ms, "
+                  "summed over the step's shapes)")
+
+    # the sm90 route at each cluster size, at the largest norm of each step
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for shape in (GN_TIMED, GN_HIRES):
+        x, w, b = (t.bfloat16() for t in gn_inputs(g, shape))
+        y, mean, rstd = gn.group_norm_silu_fwd_cuda(x, w, b, 32, GN_EPS)
+        sweep = []
+        for kind in ("fwd", "bwd"):
+            for k in gn.CLUSTERS:
+                if gn.gn_plan(kind, shape, 32, torch.bfloat16, k) is None:
+                    continue
+                if kind == "fwd":
+                    ms = cuda_ms(lambda: gn.group_norm_silu_fwd_cuda(
+                        x, w, b, 32, GN_EPS, cluster=k))
+                else:
+                    ms = cuda_ms(lambda: gn.group_norm_silu_bwd_cuda(
+                        x, w, b, mean, rstd, y, 32, affine_grads=False,
+                        cluster=k))
+                sweep.append(f"{'K4' if kind == 'fwd' else 'K5'} k={k} "
+                             f"{ms:.4f}")
+        print(f"plan sweep {shape} bf16 (ms): " + ", ".join(sweep))
+        del x, y
+
+    out = {}
+    for k in ("K4", "K5"):
+        out[k] = dict(timed[GN_TIMED][k], max_abs_err=worst["sm90"][k],
+                      simt_max_abs_err=worst["simt"][k],
+                      hires_shape=dict(timed[GN_HIRES][k],
+                                       shape=list(GN_HIRES)),
+                      per_step={name: sums[k]
+                                for name, sums in per_step.items()})
     return out
 
 
@@ -951,9 +1103,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. K4 / K5 against the plain pair, on the steps' GroupNorm shapes
-    shapes, groups = step_norm_shapes(16, (32, 32))
-    hires_shapes, _ = step_norm_shapes(HIRES["frames"], HIRES["latent_hw"])
-    gn_timed = check_k4_k5(gn, shapes + hires_shapes, groups)
+    geometries = {"256px": headline_norm_launches(16, (32, 32)),
+                  "576x320": headline_norm_launches(HIRES["frames"],
+                                                    HIRES["latent_hw"])}
+    shapes = sorted(geometries["256px"][0])
+    hires_shapes = sorted(geometries["576x320"][0])
+    gn_timed = check_k4_k5(gn, geometries)
 
     # 10. bench.py's headline with the fused GroupNorm
     by_path["headline_fused"], fused = train_path(
@@ -986,11 +1141,11 @@ def main() -> int:
 
     def by_route(k):
         return {r: sum(counts[f"{k}_{r}"] for counts in by_path.values())
-                for r in fa.ROUTES}
+                for r in ("sm90", OFF_ROUTE[k])}
 
-    for k in ("K1", "K2", "K3"):
-        if by_route(k)["wmma"]:
-            fail(f"the main path sent {k} launches to the wmma route: "
+    for k, off in OFF_ROUTE.items():
+        if by_route(k)[off]:
+            fail(f"the main path sent {k} launches to the {off} route: "
                  f"{by_route(k)}")
     source = "text_to_video_finetuning_tpu_torch/csrc/"
     replaces = "text_to_video_finetuning_tpu/ops/flash_attention.py:"
@@ -1025,14 +1180,16 @@ def main() -> int:
          "shape": "B=16 S=1024 H=5 D=64 bf16 (training)",
          "hires_shape": bwd["K3"]["hires"]},
     ]
-    for k, name, line in (("K4", "group_norm_silu_fwd", "44"),
-                          ("K5", "group_norm_silu_bwd", "70")):
+    for k, name, line in (("K4", "group_norm_silu_fwd_sm90", "44"),
+                          ("K5", "group_norm_silu_bwd_sm90", "70")):
         records.append({
             "name": name, "route": "cuda",
-            "source": source + "groupnorm_silu.cu",
+            "source": source + "groupnorm_silu_sm90.cu",
             "replaces": gn_replaces + line,
+            "simt_source": source + "groupnorm_silu.cu",
             "launches": sum(launches(k).values()),
-            "launches_by_path": launches(k), **gn_timed[k],
+            "launches_by_path": launches(k),
+            "launches_by_route": by_route(k), **gn_timed[k],
             "shape": "N=16 C=960 H=W=32 G=32 bf16 (256 px training)"})
     for rec in records:
         if rec["launches"] == 0:

@@ -19,7 +19,11 @@ kernel's error reaches about 2x the plain backward's.
 
 K4/K5: fp32 max |d| <= 1e-4 against the plain pair; bf16 errors against
 the fp32 plain result within 1.5x the plain bf16 version's (plus 1e-6 for
-the outputs bf16 rounds to the same value).
+the outputs bf16 rounds to the same value).  K4 and K5 have two routes:
+`sm90` (bulk copies into shared memory, cluster split, the default wherever
+`gn_route` finds a plan) and `simt` (the first kernels, every shape); the
+sm90 tests force cluster sizes 1 to 8 and cover channels that straddle a
+16-byte vector (H*W = 180 and 45, the 576x320 step's) and a CTA boundary.
 """
 
 import pytest
@@ -471,3 +475,222 @@ def test_groupnorm_autograd_matches_plain_on_the_card(cuda, dtype):
     for got, t in zip((xs, ws, bs), (xf, wf, bf)):
         assert (got.grad.float() - t.grad).abs().max().item() <= \
             tol * max(1.0, t.grad.abs().max().item())
+
+
+# (label, x shape NCHW, groups, cluster or None for the plan's): the
+# smallest step slab (16 elements of H*W, 640 a slab), the 256 px concat at
+# its own plan and at forced clusters 2 / 4 / 8, the 576x320 levels whose
+# H*W is not a multiple of the vector (180 and 45; at cluster 4 a channel
+# straddles two CTAs), a 3-D spatial layout and G = 8
+SM90_GN_CASES = [
+    ("step_4x4", (2, 1280, 4, 4), 32, None),
+    ("concat_960", (2, 960, 32, 32), 32, None),
+    ("concat_960_k2", (2, 960, 32, 32), 32, 2),
+    ("concat_960_k4", (2, 960, 32, 32), 32, 4),
+    ("concat_960_k8", (2, 960, 32, 32), 32, 8),
+    ("hires_10x18_k4", (2, 1280, 10, 18), 32, 4),
+    ("hires_5x9", (2, 2560, 5, 9), 32, None),
+    ("3d_spatial", (2, 64, 3, 4, 5), 32, None),
+    ("g8_k2", (3, 32, 8, 8), 8, 2),
+]
+_LOW = {"fp16": torch.float16, "bf16": torch.bfloat16}
+
+
+def _sm90_pair(x, w, b, groups, silu, cluster, dy=None, mean=None,
+               rstd=None):
+    """K4 on sm90, then K5 on sm90 with dgamma / dbeta and without (at the
+    same mean / rstd, by default K4's); asserts the counters moved by one
+    sm90 launch each and that the two K5 calls give the same dx."""
+    before = {k: getattr(gn, f"{k}_launch_count")
+              for k in ("fwd", "fwd_sm90", "fwd_simt", "bwd", "bwd_sm90",
+                        "bwd_simt")}
+    fwd = gn.group_norm_silu_fwd_cuda(x, w, b, groups, 1e-5, silu,
+                                      route="sm90", cluster=cluster)
+    mean = fwd[1] if mean is None else mean
+    rstd = fwd[2] if rstd is None else rstd
+    dy = torch.cos(fwd[0].float()).to(x.dtype) if dy is None else dy
+    bwd = gn.group_norm_silu_bwd_cuda(x, w, b, mean, rstd, dy, groups, silu,
+                                      route="sm90", cluster=cluster)
+    dx_only = gn.group_norm_silu_bwd_cuda(x, w, b, mean, rstd, dy, groups,
+                                          silu, affine_grads=False,
+                                          route="sm90", cluster=cluster)
+    torch.cuda.synchronize()
+    after = {k: getattr(gn, f"{k}_launch_count") for k in before}
+    assert {k: after[k] - before[k] for k in before} == {
+        "fwd": 1, "fwd_sm90": 1, "fwd_simt": 0, "bwd": 2, "bwd_sm90": 2,
+        "bwd_simt": 0}
+    assert dx_only[1] is None and torch.equal(dx_only[0], bwd[0])
+    return fwd, bwd, dy
+
+
+@pytest.mark.parametrize("silu", [True, False], ids=["silu", "no_silu"])
+@pytest.mark.parametrize("label,shape,groups,cluster", SM90_GN_CASES,
+                         ids=[c[0] for c in SM90_GN_CASES])
+def test_sm90_groupnorm_fp32_matches_plain(cuda, label, shape, groups,
+                                           cluster, silu):
+    """fp32: y, mean, rstd and dx within 1e-4 of the plain pair; dgamma /
+    dbeta within 1e-4 of max(1, max |ref|) (sums in another order)."""
+    x, w, b = _gn_inputs(cuda, shape)
+    (y, mean, rstd), (dx, dw, db), dy = _sm90_pair(x, w, b, groups, silu,
+                                                   cluster)
+    ref = gn.group_norm_silu_reference(x, w, b, groups, 1e-5, silu)
+    bref = gn.group_norm_silu_bwd_reference(x, w, b, ref[1], ref[2], dy,
+                                            groups, silu)
+    assert _worst((y, mean, rstd), ref) <= 1e-4
+    assert _worst([dx], bref[:1]) <= 1e-4
+    for got, r in zip((dw, db), bref[1:]):
+        assert _worst([got], [r]) <= 1e-4 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", sorted(_LOW), ids=sorted(_LOW))
+@pytest.mark.parametrize("silu", [True, False], ids=["silu", "no_silu"])
+@pytest.mark.parametrize("label,shape,groups,cluster", SM90_GN_CASES,
+                         ids=[c[0] for c in SM90_GN_CASES])
+def test_sm90_groupnorm_half_matches_plain(cuda, label, shape, groups,
+                                           cluster, silu, dtype):
+    """fp16 / bf16 x, dy and parameters: y and dx against the fp32 plain
+    result within 1.5x the plain pair's error on the same inputs (+1e-6);
+    dgamma / dbeta (fp32 sums of the same inputs, at the plain mean / rstd)
+    within 1e-3 of max(1, max |ref|): the plain pair sums in another
+    order over up to 2,048 elements a channel."""
+    x, w, b = _gn_inputs(cuda, shape)
+    ref = gn.group_norm_silu_reference(x, w, b, groups, 1e-5, silu)
+    dy = torch.cos(ref[0])
+    bref = gn.group_norm_silu_bwd_reference(x, w, b, ref[1], ref[2], dy,
+                                            groups, silu)
+    x16, w16, b16, dy16 = (t.to(_LOW[dtype]) for t in (x, w, b, dy))
+    p16 = gn.group_norm_silu_reference(x16, w16, b16, groups, 1e-5, silu)
+    (y16, _, _), (dx16, _, _), _ = _sm90_pair(x16, w16, b16, groups, silu,
+                                              cluster, dy=dy16)
+    pdx16 = gn.group_norm_silu_bwd_reference(x16, w16, b16, p16[1], p16[2],
+                                             dy16, groups, silu)
+    assert y16.dtype == dx16.dtype == _LOW[dtype]
+    assert _worst([y16], [ref[0]]) <= 1.5 * _worst([p16[0]], [ref[0]]) + 1e-6
+    assert _worst([dx16], [bref[0]]) <= \
+        1.5 * _worst([pdx16[0]], [bref[0]]) + 1e-6
+    _, dw, db = gn.group_norm_silu_bwd_cuda(x16, w16, b16, p16[1], p16[2],
+                                            dy16, groups, silu, route="sm90",
+                                            cluster=cluster)
+    for got, r in zip((dw, db), pdx16[1:]):
+        assert _worst([got], [r]) <= 1e-3 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.parametrize("label,shape,groups,cluster", SM90_GN_CASES,
+                         ids=[c[0] for c in SM90_GN_CASES])
+def test_sm90_groupnorm_is_deterministic(cuda, label, shape, groups,
+                                         cluster):
+    """Two runs of K4 and K5 (with dgamma / dbeta) on the same bf16 inputs
+    are bitwise equal: the CTAs' partials merge in rank order."""
+    x, w, b = (t.bfloat16() for t in _gn_inputs(cuda, shape))
+    first = _sm90_pair(x, w, b, groups, True, cluster)
+    second = _sm90_pair(x, w, b, groups, True, cluster, dy=first[2])
+    for a, c in zip(first[0] + first[1], second[0] + second[1]):
+        assert torch.equal(a, c)
+
+
+def test_groupnorm_routes_by_plan_and_counts_each_route(cuda):
+    """The default route is gn_route's: sm90 for the step's shapes, simt for
+    a slab that is not whole 16-byte units; each launch moves its route's
+    counter and the total."""
+    x, w, b = (t.bfloat16() for t in _gn_inputs(cuda, (2, 960, 32, 32)))
+    xr, wr, br = (t.bfloat16() for t in _gn_inputs(cuda, (2, 24, 9, 11)))
+    assert gn.gn_route("fwd", x.shape, 32, x.dtype) == "sm90"
+    assert gn.gn_route("bwd", xr.shape, 8, xr.dtype) == "simt"
+    names = ("fwd", "fwd_sm90", "fwd_simt", "bwd", "bwd_sm90", "bwd_simt")
+    before = [getattr(gn, f"{k}_launch_count") for k in names]
+    y, mean, rstd = gn.group_norm_silu_fwd_cuda(x, w, b, 32)
+    gn.group_norm_silu_bwd_cuda(x, w, b, mean, rstd, y, 32,
+                                affine_grads=False)
+    yr, mr, rr = gn.group_norm_silu_fwd_cuda(xr, wr, br, 8)
+    gn.group_norm_silu_bwd_cuda(xr, wr, br, mr, rr, yr, 8)
+    gn.group_norm_silu_fwd_cuda(x, w, b, 32, route="simt")
+    torch.cuda.synchronize()
+    after = [getattr(gn, f"{k}_launch_count") for k in names]
+    assert [a - c for a, c in zip(after, before)] == [3, 1, 2, 2, 1, 1]
+
+
+@pytest.mark.parametrize("label,shape,groups", GN_SHAPES,
+                         ids=[s[0] for s in GN_SHAPES])
+def test_simt_groupnorm_route_matches_plain(cuda, label, shape, groups):
+    """The simt route, forced, on every shape (ragged slabs included): fp32
+    within 1e-4 of the plain pair, dgamma / dbeta within 1e-4 of max(1,
+    max |ref|)."""
+    x, w, b = _gn_inputs(cuda, shape)
+    ref = gn.group_norm_silu_reference(x, w, b, groups, 1e-5)
+    got = gn.group_norm_silu_fwd_cuda(x, w, b, groups, 1e-5, route="simt")
+    dy = torch.cos(ref[0])
+    bref = gn.group_norm_silu_bwd_reference(x, w, b, ref[1], ref[2], dy,
+                                            groups)
+    bgot = gn.group_norm_silu_bwd_cuda(x, w, b, ref[1], ref[2], dy, groups,
+                                       route="simt")
+    torch.cuda.synchronize()
+    assert _worst(got, ref) <= 1e-4
+    assert _worst(bgot[:1], bref[:1]) <= 1e-4
+    for a, r in zip(bgot[1:], bref[1:]):
+        assert _worst([a], [r]) <= 1e-4 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.parametrize("route", gn.ROUTES)
+def test_groupnorm_fp32_parameters_with_bf16_x_on_each_route(cuda, route):
+    x, w, b = _gn_inputs(cuda, (2, 64, 8, 8))
+    y, mean, rstd = gn.group_norm_silu_fwd_cuda(x.bfloat16(), w, b, 32,
+                                                route=route)
+    ref = gn.group_norm_silu_reference(x.bfloat16(), w, b, 32)
+    dy = torch.cos(ref[0].float()).bfloat16()
+    dx = gn.group_norm_silu_bwd_cuda(x.bfloat16(), w, b, mean, rstd, dy, 32,
+                                     route=route)[0]
+    dref = gn.group_norm_silu_bwd_reference(x.bfloat16(), w, b, mean, rstd,
+                                            dy, 32)[0]
+    assert y.dtype == dx.dtype == torch.bfloat16
+    assert _worst([y], [ref[0]]) <= 1e-2
+    assert _worst([dx], [dref]) <= 2e-2
+
+
+def test_sm90_groupnorm_refusals(cuda):
+    """The sm90 route refuses what it does not take, before it launches: a
+    ragged slab, H*W below one vector, an unaligned x (whose default route
+    is then simt), a cluster that is not 1/2/4/8 or above the slab's units;
+    the C entry refuses a plan whose shared bytes are short."""
+    x, w, b = (t.bfloat16() for t in _gn_inputs(cuda, (2, 24, 9, 11)))
+    with pytest.raises(ValueError, match="sm90 route takes"):
+        gn.group_norm_silu_fwd_cuda(x, w, b, 8, route="sm90")
+    xs = torch.randn(2, 64, 2, 2, device="cuda").bfloat16()   # H*W = 4 < 8
+    ws, bs = w.new_ones(64), w.new_zeros(64)
+    with pytest.raises(ValueError, match="sm90 route takes"):
+        gn.group_norm_silu_fwd_cuda(xs, ws, bs, 32, route="sm90")
+    flat = torch.randn(2 * 64 * 64 + 1, device="cuda").bfloat16()
+    xu = flat[1:].view(2, 64, 8, 8)                  # 2 bytes off 16
+    assert gn._pick_route(None, "fwd", xu, 32) == "simt"
+    with pytest.raises(ValueError, match="sm90 route takes"):
+        gn.group_norm_silu_fwd_cuda(xu, ws, bs, 32, route="sm90")
+    xa = torch.randn(2, 64, 8, 8, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="cluster size 3"):
+        gn.group_norm_silu_fwd_cuda(xa, ws, bs, 32, cluster=3)
+    with pytest.raises(ValueError, match="plan of the sm90 route"):
+        gn.group_norm_silu_fwd_cuda(xa, ws, bs, 32, route="simt", cluster=2)
+    with pytest.raises(ValueError, match="no sm90 plan"):     # 2 units a slab
+        gn.group_norm_silu_fwd_cuda(xa[:, :2, :4, :4].contiguous(), ws[:2],
+                                    bs[:2], 2, cluster=8)
+    plan = gn.gn_plan("fwd", xa.shape, 32, xa.dtype)
+    lib = gn._load()["sm90"]
+    y = torch.empty_like(xa)
+    mean, rstd = (torch.empty(2, 32, device="cuda") for _ in range(2))
+    before = gn.fwd_launch_count
+    err = lib.t2v_group_norm_silu_fwd_sm90(
+        2, 2, xa.data_ptr(), ws.data_ptr(), bs.data_ptr(), y.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), 2, 64, 32, 64, 1e-5, 1,
+        plan.cluster, plan.threads, plan.chunk_bytes, plan.smem_bytes - 16,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == -5
+    assert b"shared bytes" in lib.t2v_group_norm_sm90_error_string(err)
+    assert gn.fwd_launch_count == before
+
+
+def test_sm90_groupnorm_plans_fit_the_card(cuda):
+    """cudaOccupancyMaxActiveClusters holds at least one cluster of every
+    plan of the 256 px concat and the 576x320 level-0 norm, K4 and K5."""
+    for kind in ("fwd", "bwd"):
+        for shape in ((16, 960, 32, 32), (16, 960, 40, 72)):
+            for dtype in (torch.bfloat16, torch.float32):
+                plan = gn.gn_plan(kind, shape, 32, dtype)
+                assert gn.max_active_clusters(kind, plan, dtype) >= 1

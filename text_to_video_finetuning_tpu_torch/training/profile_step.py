@@ -18,7 +18,8 @@ policy and the unfused GroupNorm), takes two warm steps, then:
    kernel family, the busiest kernels, and the device's busy share of the
    traced step (the profiler inflates the host side, so the share is a
    lower bound of the untraced one).  The gzipped Chrome trace goes to
-   `--out`.
+   `--out`, and beside it `kernels.tsv`: every kernel's device ms, calls,
+   family and full name.
 
 Needs a CUDA device; exits non-zero without one.  Prints the card's name
 and power limit first.
@@ -38,13 +39,22 @@ import torch
 
 # kernel-name patterns, first match wins; the flash family takes every
 # flash kernel of csrc/ on both routes (flash_fwd_*, flash_bwd_dkv_*,
-# flash_bwd_dq_*, flash_dkv_*, flash_dq_*)
+# flash_bwd_dq_*, flash_dkv_*, flash_dq_*), the GroupNorm family both routes
+# of K4/K5 (gn_silu_fwd_*, gn_silu_bwd_*).  "normalization" takes ATen's
+# GroupNorm kernels (the library sites: statistics, fused parameters, the
+# backward's internal gradients, gamma / beta) before any other pattern can
+# take them, but not the random-normal kernels; "convolution" does not take
+# "convert".
 FAMILIES = [
     ("flash K1/K2/K3", r"flash_(fwd|bwd|dkv|dq)_"),
     ("GroupNorm K4/K5", r"gn_silu_(fwd|bwd)"),
-    ("convolution", r"conv|cudnn|implicit_gemm|xmma_fprop|dgrad|wgrad"),
+    ("normalization", r"RowwiseMoments|ComputeFusedParams|"
+                      r"ComputeInternalGradients|ComputeBackwardFusedParams|"
+                      r"GammaBeta\w*Backward|GroupNorm|group_norm|"
+                      r"norm(?!al)|welford"),
+    ("convolution", r"conv(?!ert)|cudnn|implicit_gemm|xmma_fprop|dgrad|"
+                    r"wgrad"),
     ("matmul", r"gemm|cutlass|sm90_xmma|ampere|magma|splitK|nvjet"),
-    ("normalization", r"norm|welford"),
     ("softmax", r"softmax"),
     ("optimizer", r"adam|foreach|multi_tensor"),
     ("copy / cast", r"copy|cast|convert"),
@@ -160,6 +170,11 @@ def main(argv=None) -> int:
     for label, us in by_family.most_common():
         print(f"  {label:16s} {us / 1e3:10.3f} ms "
               f"{100 * us / total_us:5.1f} %")
+    with open(os.path.join(args.out, "kernels.tsv"), "w") as f:
+        f.write("device_ms\tcalls\tfamily\tname\n")
+        for name, us in by_kernel.most_common():
+            f.write(f"{us / 1e3:.4f}\t{calls[name]}\t{family(name)}\t"
+                    f"{name}\n")
     print("busiest kernels:")
     for name, us in by_kernel.most_common(15):
         print(f"  {us / 1e3:9.3f} ms  x{calls[name]:<6d} {name[:100]}")
