@@ -2,9 +2,10 @@
 hand-written kernels (flash attention: forward K1, backward K2 dK/dV and K3
 dQ; fused GroupNorm+SiLU: forward K4, backward K5), checks each against its
 plain PyTorch version, serves three requests through the port's serving
-path and takes LoRA training steps through its training path in four
-configurations, all at the full width of the ms-1.7b model (random weights
-from a seed).
+path, takes LoRA training steps through its training path in five
+configurations and trains configs/v2/train_config.yaml's full finetune
+through the training engine (with a checkpoint and a resume), all at the
+full width of the ms-1.7b model (random weights from a seed).
 
     python3 chip_smoke.py
 
@@ -12,8 +13,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA device must be present; prints its name / power limit;
   2. build every kernel from csrc/ with nvcc (sm_90a), one process each,
      and print ptxas's registers, spills and wgmma serialization of each;
-  3. K1 against its plain version on phase 3's shapes, the training shape
-     and the 576x320 step's (2,880 tokens): fp32 on the `wmma` route, bf16
+  3. K1 against its plain version on phase 3's shapes, the training shape,
+     phase 14's (ENGINE_SHAPE: 8 frames of 1,024 tokens) and the 576x320
+     step's (2,880 tokens), FLASH_CHECKED: fp32 on the `wmma` route, bf16
      on both routes (`sm90` by default); K1 on both routes, its plain
      version and SDPA's forward timed at the serving, training and 576x320
      shapes;
@@ -23,7 +25,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      count checked per request, every launch on the `sm90` route;
   5. K1 in context: request (a)'s first full-width UNet forward, flash vs
      plain, with fp32 and with bf16 weights;
-  6. K2 and K3 against the plain backward on phase 3's shapes, fp32 (the
+  6. K2 and K3 against the plain backward on FLASH_CHECKED, fp32 (the
      `wmma` route) and bf16 (both routes), dO = cos(o); K2 and K3 on both
      routes, their plain versions and SDPA's backward (forward + backward
      minus forward) timed at the training and 576x320 shapes;
@@ -55,7 +57,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
  12. `fusedgn+auto` (fused GroupNorm, the "nothing" policy): one warm, one
      timed step;
  13. the 576x320 variant `hires16-fusedgn` (latents 40x72, 16 frames, the
-     headline policy, fused GroupNorm): one warm and two timed steps.
+     headline policy, fused GroupNorm): one warm and two timed steps;
+ 14. the training engine, `training.engine.main(**cfg)` with cfg
+     configs/v2/train_config.yaml's keys (TRAIN_CONFIG; ENGINE_OVERRIDES
+     lists what the run changes) on phase 4's pipeline directory: a full
+     finetune of attn1 / attn2 / temp_conv, bf16 compute with fp32
+     trainable tensors, from 8 cached 256x256x8 latents written with the
+     port's `cache_write_item`; 6 steps with checkpoint-3, every loss
+     finite, the K1-K5 launches of the run equal to 6 x the per-step count
+     derived from the model (all on `sm90`), checkpoint-3 and the final
+     pipeline in the diffusers layout with a train state; then a resume
+     from checkpoint-3 to step 6: the state it restores equals the saved
+     file, and it retraces the uninterrupted run, each step's loss and the
+     final train state (step, trainable tensors, Adam moments and counters,
+     generators) equal bit for bit; step time (median) and save times
+     from the runs' `engine.RunRecord`, and peak memory, printed;
+ 15. raw latents: `build(raw_latents=True)` at 256x256x16 with the SD VAE
+     (pixel frames encoded in the step), one warm and two timed steps with
+     the launches checked as in phase 7, and the encode's share of a step.
 The last two lines are the kernels record and the device record (JSON).
 K1, K2 and K3 run on two routes (ops/flash_attention.py::flash_route):
 `sm90` (csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dkv_sm90.cu,
@@ -75,6 +94,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -117,6 +138,88 @@ FLASH_PER_UNET = 5      # 1024-token self-attentions per UNet forward at 256px
 TRAIN_STEPS = 4
 HEADLINE = "conv_attn_dense+skiplow3"   # bench.py's remat policy
 HIRES = dict(frames=16, latent_hw=(40, 72))
+# phase 14: configs/v2/train_config.yaml's keys, held here because the card's
+# machine has no yaml (tests/test_torch_config.py holds them equal); the run
+# overrides only ENGINE_OVERRIDES (engine_config)
+TRAIN_CONFIG = {
+    "pretrained_model_path": "./models/model_scope_diffusers",
+    "output_dir": "./outputs",
+    "dataset_types": ["json"],
+    "train_data": {"json_path": "./data/train.json", "preprocessed": False,
+                   "n_sample_frames": 8, "width": 256, "height": 256,
+                   "sample_start_idx": 1, "frame_step": 1,
+                   "use_bucketing": True, "fps": 8},
+    "validation_data": {"prompt": "", "sample_preview": True,
+                        "num_frames": 16, "width": 256, "height": 256,
+                        "num_inference_steps": 25, "guidance_scale": 9},
+    "shuffle": True,
+    "validation_steps": 100,
+    "trainable_modules": ["attn1", "attn2", "temp_conv"],
+    "trainable_text_modules": None,
+    "train_text_encoder": False,
+    "train_batch_size": 1,
+    "max_train_steps": 10000,
+    "learning_rate": 5e-06,
+    "scale_lr": False,
+    "lr_scheduler": "constant",
+    "lr_warmup_steps": 0,
+    "adam_beta1": 0.9,
+    "adam_beta2": 0.999,
+    "adam_weight_decay": 0.01,
+    "adam_epsilon": 1e-08,
+    "max_grad_norm": 1.0,
+    "gradient_accumulation_steps": 1,
+    "gradient_checkpointing": True,
+    "remat_policy": "conv_attn_dense+skiplow3",
+    "text_encoder_gradient_checkpointing": False,
+    "checkpointing_steps": 2500,
+    "resume_from_checkpoint": None,
+    "resume_step": None,
+    "mixed_precision": "bf16",
+    "use_8bit_adam": False,
+    "enable_xformers_memory_efficient_attention": False,
+    "enable_torch_2_attn": True,
+    "seed": None,
+    "use_offset_noise": False,
+    "rescale_schedule": False,
+    "offset_noise_strength": 0.1,
+    "extend_dataset": False,
+    "cache_latents": True,
+    "cached_latent_dir": None,
+    "lora_version": "cloneofsimo",
+    "use_unet_lora": False,
+    "use_text_lora": False,
+    "save_pretrained_model": True,
+    "lora_rank": 16,
+    "lora_path": "",
+    "logger_type": "tensorboard",
+    "mesh_dp": -1,
+    "mesh_fsdp": 1,
+    "mesh_tp": 1,
+    "attention_backend": "auto",
+}
+ENGINE_STEPS, ENGINE_CKPT, ENGINE_ITEMS = 6, 3, 8
+# phase 14's spatial self-attention, K1-K3's input there: batch x
+# n_sample_frames frames of (height/8)(width/8) tokens, heads and head_dim
+# as in TRAIN_SHAPE (ms-1.7b's first level)
+ENGINE_SHAPE = ("engine", TRAIN_CONFIG["train_batch_size"]
+                * TRAIN_CONFIG["train_data"]["n_sample_frames"],
+                *[(TRAIN_CONFIG["train_data"]["height"] // 8)
+                  * (TRAIN_CONFIG["train_data"]["width"] // 8)] * 2,
+                *TRAIN_SHAPE[4:])
+# every shape phases 3 and 6 hold K1-K3 against their plain versions at
+FLASH_CHECKED = K1_SHAPES + [TRAIN_SHAPE, ENGINE_SHAPE, HIRES_SHAPE]
+# (key, nested key or None): what engine_config changes.  sample_preview is
+# off because the engine samples at step 1 whatever validation_steps says
+# (JAX engine.py:110-112) and writes the sample with cv2, which the card's
+# machine lacks
+ENGINE_OVERRIDES = (
+    ("pretrained_model_path", None), ("output_dir", None),
+    ("train_data", "json_path"), ("cached_latent_dir", None),
+    ("max_train_steps", None), ("checkpointing_steps", None),
+    ("validation_data", "sample_preview"), ("seed", None))
+PIPELINE_PARTS = ("model_index.json", "unet", "vae", "text_encoder",
+                  "tokenizer", "scheduler")
 # K4/K5: (label, x shape NCHW, groups), beside the training steps' shapes
 GN_SMALL = [
     ("ragged_7x5_g4", (1, 32, 7, 5), 4),
@@ -209,7 +312,7 @@ def check_k1(fa):
     same inputs.  The launches made here are not the main path's."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     timed = {}
-    for label, b, sq, sk, h, d in K1_SHAPES + [TRAIN_SHAPE, HIRES_SHAPE]:
+    for label, b, sq, sk, h, d in FLASH_CHECKED:
         q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=g)
                    for s in (sq, sk, sk))
         scale = d ** -0.5
@@ -280,7 +383,7 @@ def check_k2_k3(fa):
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = {"K2": 0.0, "K3": 0.0, "K2_wmma": 0.0, "K3_wmma": 0.0}
     out = {"K2": {}, "K3": {}}
-    for label, b, sq, sk, h, d in K1_SHAPES + [TRAIN_SHAPE, HIRES_SHAPE]:
+    for label, b, sq, sk, h, d in FLASH_CHECKED:
         q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=g)
                    for s in (sq, sk, sk))
         scale = d ** -0.5
@@ -453,23 +556,22 @@ def write_pipeline(path: str):
     return n_params
 
 
-def serve(fa):
-    """Phases 4 and 5; returns the K1 launch counts of the serving path
+def serve(fa, pipeline_dir):
+    """Phases 4 and 5; writes the pipeline directory `pipeline_dir` (phase
+    14 trains from it) and returns the K1 launch counts of the serving path
     (`read_counts` keys), read just after it."""
     from text_to_video_finetuning_tpu_torch.pipelines.inference import (
         generate, initialize_pipeline)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        n_params = write_pipeline(f"{tmp}/pipeline")
-        torch.cuda.empty_cache()
-        print(f"pipeline written (bf16): {n_params}, "
-              f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        pipe = initialize_pipeline(f"{tmp}/pipeline",
-                                   use_fused_attention=True, half=True,
-                                   device="cuda")
-        print(f"initialize_pipeline: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n_params = write_pipeline(pipeline_dir)
+    torch.cuda.empty_cache()
+    print(f"pipeline written (bf16): {n_params}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pipe = initialize_pipeline(pipeline_dir, use_fused_attention=True,
+                               half=True, device="cuda")
+    print(f"initialize_pipeline: {time.perf_counter() - t0:.1f} s")
 
     first_input = {}
 
@@ -604,7 +706,11 @@ def expected_train_launches(unet, batch, cfg):
     from text_to_video_finetuning_tpu_torch.models.remat import (
         ATTN_TAG, REMAT_POLICIES)
 
-    b, _, frames, lh, lw = batch["pixel_values"].shape
+    if getattr(cfg, "cache_latents", True):
+        b, _, frames, lh, lw = batch["pixel_values"].shape
+    else:                   # pixel frames (B, F, 3, H, W), VAE factor 8
+        b, frames, _, h, w = batch["pixel_values"].shape
+        lh, lw = h // 8, w // 8
     passes = 2 if frames > 1 and cfg.two_pass else 1
     norms = norm_launches(unet, b * frames, (lh, lw), passes).values()
     k1 = k2 = 0
@@ -1057,6 +1163,258 @@ def check_k4_k5(gn, geometries):
     return out
 
 
+def engine_config(pipeline_dir, output_dir, json_path, cache_dir, **extra):
+    """TRAIN_CONFIG with ENGINE_OVERRIDES applied (and `extra`, for the
+    resumed run)."""
+    cfg = json.loads(json.dumps(TRAIN_CONFIG))          # a deep copy
+    cfg.update(pretrained_model_path=pipeline_dir, output_dir=output_dir,
+               cached_latent_dir=cache_dir, max_train_steps=ENGINE_STEPS,
+               checkpointing_steps=ENGINE_CKPT, seed=SEED)
+    cfg["train_data"]["json_path"] = json_path
+    cfg["validation_data"]["sample_preview"] = False
+    cfg.update(extra)
+    return cfg
+
+
+def write_engine_data(pipeline_dir, root):
+    """ENGINE_ITEMS cached items from the seed, written with the port's
+    `cache_write_item`: latents (4, F, 32, 32) fp32, the prompt's ids from
+    the pipeline's tokenizer; and an ENGINE_ITEMS-entry json for the `json`
+    dataset (built, never decoded: the engine trains from the cache)."""
+    import numpy as np
+    from text_to_video_finetuning_tpu_torch.data import native as dnative
+    from text_to_video_finetuning_tpu_torch.utils.tokenizer import (
+        CLIPTokenizer)
+
+    tok = CLIPTokenizer.from_pretrained(f"{pipeline_dir}/tokenizer")
+    frames = TRAIN_CONFIG["train_data"]["n_sample_frames"]
+    lh = TRAIN_CONFIG["train_data"]["height"] // 8
+    lw = TRAIN_CONFIG["train_data"]["width"] // 8
+    cache_dir, entries = f"{root}/latents", []
+    os.makedirs(cache_dir, exist_ok=True)
+    g = torch.Generator().manual_seed(SEED + 14)
+    for i in range(ENGINE_ITEMS):
+        prompt = f"clip {i}: waves on a rocky shore"
+        ids = tok(prompt, truncation=True, padding="max_length",
+                  max_length=tok.model_max_length).input_ids
+        latents = torch.randn((4, frames, lh, lw), generator=g).numpy()
+        if not dnative.cache_write_item(f"{cache_dir}/cached_{i}.t2vc",
+                                        latents, np.asarray(ids), prompt):
+            fail(f"cache_write_item failed for item {i}")
+        entries.append({"video_path": f"{root}/videos/{i}.mp4",
+                        "data": [{"frame_index": 1, "prompt": prompt}]})
+    json_path = f"{root}/train.json"
+    with open(json_path, "w") as f:
+        json.dump({"data": entries}, f)
+    print(f"engine data: {ENGINE_ITEMS} cached items (4, {frames}, {lh}, "
+          f"{lw}) fp32 by {'g++ dataio' if dnative.available() else 'numpy'}"
+          f", json {json_path}")
+    return cache_dir, json_path
+
+
+def same_tree(a, b) -> bool:
+    """Two host snapshots (dicts, lists, tensors, plain values) equal bit
+    for bit: the same keys, and each tensor of the same dtype and bytes."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def same_state(a, b) -> dict:
+    """{part: bool} over the parts of two train-state snapshots (step,
+    trainable, Adam moments and counters, generator, device RNG, EMA)."""
+    return {k: same_tree(a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+            if k != "format"}
+
+
+def check_pipeline_dir(path, label, train_state):
+    missing = [p for p in PIPELINE_PARTS
+               if not os.path.exists(os.path.join(path, p))]
+    if train_state and not os.path.exists(
+            os.path.join(path, "train_state", "state.pt")):
+        missing.append("train_state/state.pt")
+    if missing:
+        fail(f"{label} lacks {missing}")
+    parts = [os.path.join(path, p) for p in PIPELINE_PARTS[1:]]
+    if train_state:
+        parts.append(os.path.join(path, "train_state"))
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for part in parts for d, _, fs in os.walk(part) for f in fs)
+    print(f"{label}: diffusers layout{' + train state' if train_state else ''}"
+          f", {size / 2**30:.2f} GiB")
+
+
+def engine_expected():
+    """K1-K5 launches per step of the engine's step: the ms-1.7b UNet under
+    the config's policy at batch 1, n_sample_frames frames and 32x32
+    latents, derived by `expected_train_launches` (a meta-device model)."""
+    from text_to_video_finetuning_tpu_torch.models.unet3d import (
+        UNET3D_MS_1_7B_CONFIG, UNet3DConditionModel)
+
+    td = TRAIN_CONFIG["train_data"]
+    with torch.device("meta"):
+        unet = UNet3DConditionModel(UNET3D_MS_1_7B_CONFIG)
+        latents = torch.empty((TRAIN_CONFIG["train_batch_size"], 4,
+                               td["n_sample_frames"], td["height"] // 8,
+                               td["width"] // 8))
+    unet.set_gradient_checkpointing(TRAIN_CONFIG["gradient_checkpointing"],
+                                    TRAIN_CONFIG["remat_policy"])
+    cfg = type("StepCfg", (), {"two_pass": True, "cache_latents": True})
+    return expected_train_launches(unet, {"pixel_values": latents}, cfg)
+
+
+def run_engine(label, cfg, steps, expected):
+    """One `engine.main(**cfg)` run on the card with the launches of its
+    steps counted (zeroed just before, read just after) and held against
+    `steps` x `expected`, every K1-K5 launch on `sm90`.  Returns (output
+    dir, launches, the run's `RunRecord`: step times and losses, save
+    times, the restored and final train states)."""
+    from text_to_video_finetuning_tpu_torch.training import engine
+
+    record = engine.RunRecord()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()                                   # the path starts here
+    t0 = time.perf_counter()
+    out = engine.main(record=record, **cfg)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()                        # read just after it
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [loss for _, loss in record.steps]
+    times = sorted(t for t, _ in record.steps[1:])
+    median = times[len(times) // 2] if times else float("nan")
+    print(f"[{label}] engine.main: {seconds:.1f} s, {len(record.steps)} "
+          f"steps, losses {[f'{x:.6f}' for x in losses]}, step time median "
+          f"{median:.4f} s of {len(times)} timed steps "
+          f"({[f'{t:.4f}' for t, _ in record.steps]}), peak "
+          f"{peak:.2f} GiB, saves "
+          f"{[(k, round(t, 2)) for k, t in record.saves]}")
+    if len(record.steps) != steps:
+        fail(f"[{label}] {len(record.steps)} steps, expected {steps}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"[{label}] non-finite loss: {losses}")
+    got = {k: launches[k] for k in expected}
+    want = {k: steps * v for k, v in expected.items()}
+    by_route = {k: v for k, v in launches.items() if "_" in k}
+    print(f"[{label}] launches {got} over {steps} steps (expected {want}: "
+          f"{expected} per step), by route {by_route}")
+    if got != want:
+        fail(f"[{label}] launches {got}, expected {want}")
+    if any(launches[f"{k}_{off}"] or launches[f"{k}_sm90"] != got[k]
+           for k, off in OFF_ROUTE.items()):
+        fail(f"[{label}] K1-K5 not all on the sm90 route: {by_route}")
+    return out, launches, record
+
+
+def engine_phase(pipeline_dir, root):
+    """Phase 14: `engine.main` on train_config.yaml's settings at full
+    width (ms-1.7b, full finetune of attn1 / attn2 / temp_conv, bf16 with
+    fp32 trainable tensors, cached 256x256x8 latents, the headline policy):
+    ENGINE_STEPS steps with a checkpoint every ENGINE_CKPT, then a resume
+    from checkpoint-ENGINE_CKPT to ENGINE_STEPS.  The resume must restore
+    the saved file bit for bit and then retrace the uninterrupted run: the
+    same loss at every step and the same final train state (step,
+    trainable tensors, Adam moments and counters, generators, EMA), bit
+    for bit.  Returns the launches of both runs."""
+    from text_to_video_finetuning_tpu_torch.utils import train_state_io
+
+    free = shutil.disk_usage(root).free / 2**30
+    print(f"engine: {free:.1f} GiB free under {root}")
+    cache_dir, json_path = write_engine_data(pipeline_dir, root)
+    expected = engine_expected()
+    try:
+        cfg = engine_config(pipeline_dir, f"{root}/runs", json_path,
+                            cache_dir)
+        out, launches, first = run_engine("engine", cfg, ENGINE_STEPS,
+                                          expected)
+        ckpt = os.path.join(out, f"checkpoint-{ENGINE_CKPT}")
+        check_pipeline_dir(ckpt, f"checkpoint-{ENGINE_CKPT}", True)
+        check_pipeline_dir(out, "final pipeline", False)
+        saved = train_state_io.read_train_state(ckpt)
+        n_train = sum(t.numel() for group in saved["trainable"].values()
+                      for t in group.values())
+        print(f"trainable parameters: {n_train:,} fp32 in "
+              f"{len(saved['trainable']['unet'])} tensors; train state step "
+              f"{saved['step']}")
+        if saved["step"] != ENGINE_CKPT:
+            fail(f"checkpoint-{ENGINE_CKPT} holds step {saved['step']}")
+        # keep checkpoint-3 for the resume; drop the rest to spare the disk
+        shutil.rmtree(os.path.join(out, f"checkpoint-{ENGINE_STEPS}"))
+        for part in PIPELINE_PARTS[1:]:
+            shutil.rmtree(os.path.join(out, part))
+
+        cfg = engine_config(pipeline_dir, f"{root}/resumed", json_path,
+                            cache_dir, resume_from_checkpoint=ckpt,
+                            resume_step=ENGINE_CKPT)
+        resumed_out, resumed, second = run_engine(
+            "engine resumed", cfg, ENGINE_STEPS - ENGINE_CKPT, expected)
+        if second.restored is None:
+            fail("resume: the engine restored no train state")
+        restored = same_state(second.restored, saved)
+        print(f"resume from checkpoint-{ENGINE_CKPT}: restored state equal "
+              f"to the saved file: {restored}")
+        if not all(restored.values()):
+            fail(f"resume: restored state differs from the saved one: "
+                 f"{restored}")
+        check_pipeline_dir(resumed_out, "resumed final pipeline", False)
+        pairs = list(zip(first.steps[ENGINE_CKPT:], second.steps))
+        for i, ((_, want), (_, got)) in enumerate(pairs):
+            print(f"step {ENGINE_CKPT + 1 + i}: loss uninterrupted "
+                  f"{want.hex()} ({want:.6f}), resumed {got.hex()}")
+        if [got for _, (_, got) in pairs] != [
+                want for (_, want), _ in pairs]:
+            fail("resume: the resumed losses differ from the uninterrupted "
+                 "run's")
+        final = same_state(second.final, first.final)
+        print(f"final train state, resumed vs uninterrupted: {final}")
+        if not all(final.values()):
+            fail(f"resume: the resumed run ends in another train state than "
+                 f"the uninterrupted one: {final}")
+    finally:
+        shutil.rmtree(f"{root}/runs", ignore_errors=True)
+        shutil.rmtree(f"{root}/resumed", ignore_errors=True)
+    return launches, resumed
+
+
+def raw_latents_phase():
+    """Phase 15: `build(raw_latents=True)` at 256x256x16 with the SD VAE:
+    one warm and two timed steps, launches as with cached latents (the
+    VAE's attention is plain in both packages); then the in-step encode
+    timed alone beside a step."""
+    from text_to_video_finetuning_tpu_torch.training.train_step import (
+        tensor_to_vae_latent)
+
+    launches, (step, state, batch, cfg) = train_path(
+        "raw_latents", dict(raw_latents=True), 2)
+    px = batch["pixel_values"]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = tensor_to_vae_latent(cfg, px, state.generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    encode_s = sorted(times)[1]
+    print(f"[raw_latents] in-step VAE encode of {tuple(px.shape)} -> "
+          f"{tuple(lat.shape)}: {encode_s:.4f} s (median of 3), "
+          f"{100 * encode_s / step_s:.1f} % of a {step_s:.4f} s step")
+    if not torch.isfinite(lat).all():
+        fail("raw latents: non-finite encode")
+    return launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1085,8 +1443,11 @@ def main() -> int:
     # 3. K1 against its plain version
     k1_timed = check_k1(fa)
 
-    # 4-5. the serving path at full width
-    serving_launches = serve(fa)
+    # 4-5. the serving path at full width; the pipeline directory stays for
+    # phase 14
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    pipeline_dir = f"{workdir.name}/pipeline"
+    serving_launches = serve(fa, pipeline_dir)
     torch.cuda.empty_cache()
 
     # 6. K2 / K3 against the plain backward
@@ -1133,6 +1494,16 @@ def main() -> int:
         "hires_fused", dict(remat_policy=HEADLINE, fused_groupnorm=True,
                             **HIRES), 2, norm_shapes=hires_shapes)
     del built
+    torch.cuda.empty_cache()
+
+    # 14. the engine at full width (train_config.yaml), and its resume
+    by_path["engine"], by_path["engine_resumed"] = engine_phase(
+        pipeline_dir, workdir.name)
+    workdir.cleanup()
+    torch.cuda.empty_cache()
+
+    # 15. raw latents: the in-step VAE encode at 256x256x16
+    by_path["raw_latents"] = raw_latents_phase()
     torch.cuda.empty_cache()
 
     def launches(k):

@@ -8,8 +8,10 @@ card.
 * The port's own copies of the JAX package's numpy-only modules agree with
   them: the flax <-> torch name map and the minimal tokenizer writer
   (byte-identical files).
-* `load_unet`, `load_vae` and `load_text_encoder` default to "cuda"; the
-  CPU tests pass device="cpu".
+* `load_unet`, `load_vae`, `load_text_encoder`, `engine.main` and
+  `cli.train_main` default to "cuda"; the CPU tests pass device="cpu";
+* the modules that the card's machine must import without cv2, yaml, PIL
+  or tensorboardX do.
 """
 
 import filecmp
@@ -97,10 +99,62 @@ def test_minimal_tokenizer_writer_matches_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize("loader", ["load_unet", "load_vae",
-                                    "load_text_encoder"])
+                                    "load_text_encoder", "engine.main",
+                                    "cli.train_main"])
 def test_loaders_default_to_the_card(loader):
+    from text_to_video_finetuning_tpu_torch import cli
+    from text_to_video_finetuning_tpu_torch.training import engine
     from text_to_video_finetuning_tpu_torch.utils import checkpoint
 
-    default = inspect.signature(getattr(checkpoint, loader)) \
-        .parameters["device"].default
+    if loader == "cli.train_main":
+        default = cli.train_parser().get_default("device")
+    else:
+        fn = (engine.main if loader == "engine.main"
+              else getattr(checkpoint, loader))
+        default = inspect.signature(fn).parameters["device"].default
     assert default == "cuda"
+
+
+_HIDDEN = r"""
+import importlib.abc, sys
+HIDDEN = ("cv2", "yaml", "PIL", "tensorboardX")
+class Hide(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in HIDDEN:
+            raise ImportError(f"{name} is hidden")
+sys.meta_path.insert(0, Hide())
+for m in HIDDEN:
+    sys.modules.pop(m, None)
+import text_to_video_finetuning_tpu_torch.config as config
+import text_to_video_finetuning_tpu_torch.data.video as video
+import text_to_video_finetuning_tpu_torch.training.engine as engine
+import text_to_video_finetuning_tpu_torch.cli as cli
+cfg = config.train_config_from_dict({"mixed_precision": "fp16"})
+config.save_config(cfg, sys.argv[1])
+assert open(sys.argv[1]).read().startswith("{")
+writer = engine._open_writer(cfg, sys.argv[2])
+assert writer is None
+try:
+    config.load_train_config(sys.argv[1])
+except ImportError:
+    pass
+else:
+    raise SystemExit("yaml was not hidden")
+loaded = [m for m in sys.modules if m.split(".")[0] in HIDDEN]
+print("loaded:", loaded)
+sys.exit(1 if loaded else 0)
+"""
+
+
+def test_engine_modules_import_without_cv2_yaml_pil_tensorboardx(tmp_path):
+    """The card's machine lacks some of cv2, yaml, PIL and tensorboardX:
+    `config.py`, `data/video.py`, `engine.py` and `cli.py` import without
+    them, `save_config` writes its flow-style YAML, and the engine runs
+    without a tensorboard writer."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _HIDDEN, str(tmp_path / "c.yaml"),
+         str(tmp_path)], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "loaded: []" in proc.stdout

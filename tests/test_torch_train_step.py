@@ -292,12 +292,33 @@ def test_build_steps_the_headline_policy_with_fused_groupnorm():
 
 @pytest.mark.parametrize("option", [
     dict(text_lora=True), dict(split=True),
-    dict(skip_nonfinite=3), dict(lora_version="stable_lora"),
-    dict(raw_latents=True), dict(use_8bit_adam=True)],
+    dict(lora_version="stable_lora"), dict(use_8bit_adam=True)],
     ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))))
 def test_build_refuses_options_not_ported_yet(option):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         micro_build(**option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(skip_nonfinite=3), dict(raw_latents=True)],
+    ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))))
+def test_build_takes_the_engine_options(option):
+    """`raw_latents` feeds pixel frames (B, F, 3, 8*lh, 8*lw) that the step
+    encodes with the VAE; `skip_nonfinite` puts AdamW behind the guard.
+    Both train two finite steps that move the LoRA."""
+    from text_to_video_finetuning_tpu_torch.models.vae import tiny_vae_config
+    step, state, batch, cfg = micro_build(vae_config=tiny_vae_config(),
+                                          **option)
+    if option.get("raw_latents"):
+        assert tuple(batch["pixel_values"].shape) == (1, FRAMES, 3, 64, 64)
+        assert not cfg.cache_latents and cfg.vae is not None
+    else:
+        assert "notfinite_drops" in step(state, batch)[1]
+    for _ in range(2):
+        state, metrics = step(state, batch)
+        assert np.isfinite(float(metrics["loss"]))
+    ups = [e["up"] for e in state.trainable["unet_lora"].values()]
+    assert any(bool((u != 0).any()) for u in ups)
 
 
 def test_ema_follows_the_jax_rule():

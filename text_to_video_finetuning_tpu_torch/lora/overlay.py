@@ -11,11 +11,14 @@ where each computes base(x) + up(down(x)).
 
 Random draws come from an explicit `torch.Generator`; its numbers differ
 from `jax.random`'s, so the tests hand both sides the same values.
+
+`collapse_lora` bakes the LoRA into the base weights of a state dict (the
+cloneofsimo save of a pipeline, reference utils/lora.py:781-816).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -97,3 +100,33 @@ def attach_lora(model: nn.Module, branch: Optional[LoraParams]):
                 module.set_lora(None, None)
             else:
                 module.set_lora(entry["down"], entry["up"])
+
+
+def lora_delta(site: LoraSite, down: torch.Tensor, up: torch.Tensor
+               ) -> torch.Tensor:
+    """The base-weight shaped product of a cloneofsimo site: up @ down, with
+    the down layer's kernel (k x k, or k x 1 x 1) kept."""
+    u = up.reshape(up.shape[0], up.shape[1])
+    if site.kind == "linear":
+        return u @ down
+    return torch.einsum("or,r...->o...", u, down)
+
+
+@torch.no_grad()
+def collapse_lora(state_dict: Mapping[str, torch.Tensor],
+                  lora_params: LoraParams, sites: Sequence[LoraSite],
+                  alpha: float = 1.0) -> Dict[str, torch.Tensor]:
+    """A copy of `state_dict` with each site's `weight` += alpha * delta,
+    the delta computed from the fp32 LoRA and cast to the weight's dtype
+    before the add (the JAX `collapse_lora`)."""
+    out = dict(state_dict)
+    for site in sites:
+        entry = lora_params.get(site.torch_name)
+        if entry is None:
+            continue
+        key = f"{site.torch_name}.weight"
+        w = out[key]
+        delta = lora_delta(site, entry["down"].detach().float(),
+                           entry["up"].detach().float()) * alpha
+        out[key] = w + delta.to(w.device, w.dtype)
+    return out

@@ -14,6 +14,10 @@ ResnetBlock2D GroupNorm -> SiLU chains through K4/K5.  Unlike the JAX
 `seed` in the JAX package's init families (models/init.py), and the cached
 latents are N(0, 1) draws, so activations are not degenerate.
 
+`raw_latents=True` adds the SD VAE (frozen, in `dtype`) and feeds pixel
+frames (B, F, 3, 8*lh, 8*lw), uniform in [-1, 1], that the step encodes
+(`train_step.py::tensor_to_vae_latent`); `skip_nonfinite=N` puts the
+optimizer behind the non-finite guard (`optim.py::wrap_optimizer`).
 Options of the JAX `build()` that are not ported yet raise
 `NotImplementedError` naming their ROADMAP item.
 """
@@ -30,8 +34,9 @@ from ..models.clip_text import (CLIP_MS_TEXT_CONFIG, CLIPTextConfig,
 from ..models.init import init_weights_
 from ..models.unet3d import (UNET3D_MS_1_7B_CONFIG, UNet3DConditionModel,
                              UNet3DConfig)
+from ..models.vae import VAE_SD_CONFIG, AutoencoderKL, VAEConfig
 from ..schedulers.ddpm import DDPMScheduler, SchedulerConfig
-from .optim import get_lr_schedule, get_optimizer
+from .optim import get_lr_schedule, get_optimizer, wrap_optimizer
 from .train_step import (TrainState, TrainStepConfig, ema_init,
                          make_train_step)
 
@@ -53,6 +58,7 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
           use_8bit_adam: bool = False,
           unet_config: UNet3DConfig = UNET3D_MS_1_7B_CONFIG,
           clip_config: CLIPTextConfig = CLIP_MS_TEXT_CONFIG,
+          vae_config: VAEConfig = VAE_SD_CONFIG,
           dtype: torch.dtype = torch.bfloat16,
           device: Union[str, torch.device] = "cuda", seed: int = 0
           ) -> Tuple[object, TrainState, dict, TrainStepConfig]:
@@ -62,10 +68,6 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
         _refuse("text-encoder LoRA (the hybrid config)", 1)
     if split:
         _refuse("the split-compile train step", 1)
-    if skip_nonfinite:
-        _refuse("skip_nonfinite (apply_if_finite, with the engine)", 2)
-    if raw_latents:
-        _refuse("raw latents (the in-step VAE encode)", 1)
     if lora_version != "cloneofsimo":
         _refuse(f"LoRA version {lora_version!r} (stable_lora)", 1)
     device = torch.device(device)
@@ -74,9 +76,12 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
         unet = init_weights_(UNet3DConditionModel(
             unet_config, fused_groupnorm=fused_groupnorm), g)
         clip = init_weights_(CLIPTextModel(clip_config), g)
+        vae = (init_weights_(AutoencoderKL(vae_config), g) if raw_latents
+               else None)
     # frozen models in the compute dtype (the reference casts them to half)
-    for model in (unet, clip):
-        model.to(dtype).requires_grad_(False)
+    for model in (unet, clip, vae):
+        if model is not None:
+            model.to(dtype).requires_grad_(False)
     unet.set_gradient_checkpointing(grad_ckpt, remat_policy)
     unet.set_attention_backend(backend)
 
@@ -85,11 +90,15 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
     unet_lora, unet_sites, _ = handler.add_lora_to_model(
         True, "unet", unet, r=16, generator=g)
     trainable = {"unet_lora": unet_lora}
-    optimizer = get_optimizer(get_lr_schedule("constant", 5e-6, 0, 100),
-                              use_8bit_adam=use_8bit_adam)
+    optimizer = wrap_optimizer(
+        get_optimizer(get_lr_schedule("constant", 5e-6, 0, 100),
+                      use_8bit_adam=use_8bit_adam),
+        skip_nonfinite_updates=skip_nonfinite)
     cfg = TrainStepConfig(
         unet=unet, text_encoder=clip,
         scheduler=DDPMScheduler(SchedulerConfig()),
+        vae=vae, cache_latents=not raw_latents,
+        scaling_factor=vae_config.scaling_factor,
         unet_sites=tuple(unet_sites), use_offset_noise=False,
         two_pass=two_pass,
         ema_decay=0.9999 if use_ema else 0.0, ema_every=1)
@@ -97,10 +106,14 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
                        opt_state=optimizer.init(trainable), generator=g,
                        ema=ema_init(trainable) if use_ema else None)
     lh, lw = latent_hw
+    if raw_latents:
+        pixels = torch.rand((batch, frames, vae_config.in_channels, 8 * lh,
+                             8 * lw), generator=g, device=device) * 2 - 1
+    else:
+        pixels = torch.randn((batch, unet_config.in_channels, frames, lh,
+                              lw), generator=g, device=device)
     batch_tree = {
-        "pixel_values": torch.randn((batch, unet_config.in_channels, frames,
-                                     lh, lw), generator=g,
-                                    device=device).to(dtype),
+        "pixel_values": pixels.to(dtype),
         "prompt_ids": torch.zeros((batch, 77), dtype=torch.long,
                                   device=device),
     }

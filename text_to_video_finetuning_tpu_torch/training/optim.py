@@ -10,12 +10,21 @@ text_to_video_finetuning_tpu/training/optim.py).
   only when g_norm >= max_norm (`torch.nn.utils.clip_grad_norm_` adds 1e-6
   to the norm and so is not the same rule).  Step n (from 0) uses the lr of
   schedule(n), as optax's counter does.  8-bit Adam is not ported yet.
+* `wrap_optimizer`: gradient accumulation with `optax.MultiSteps`
+  semantics (a running mean of the micro-gradients, one clipped AdamW
+  update per window) and the `optax.apply_if_finite` guard outside it, in
+  the order the JAX engine composes them (engine.py:487-502): a micro-batch
+  whose gradients hold NaN/inf is dropped whole (parameters, moments and
+  the accumulation window untouched), and after N consecutive drops the
+  update goes through.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Dict, Mapping, Optional, Sequence, Union
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Union)
 
 import torch
 
@@ -150,9 +159,13 @@ class ClippedAdamW:
     @torch.no_grad()
     def step(self, opt: torch.optim.AdamW, step: int) -> torch.Tensor:
         """Clip the gradients, update with the lr of `step`; returns the
-        global gradient norm before clipping."""
-        grads = [p.grad for g in opt.param_groups for p in g["params"]
-                 if p.grad is not None]
+        global gradient norm before clipping.  A parameter without a
+        gradient takes a zero one, as optax updates every leaf (weight
+        decay and the moments move)."""
+        for p in params_of(opt):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params_of(opt)]
         g_norm = global_norm(grads)
         if self.max_grad_norm and self.max_grad_norm > 0:
             keep = g_norm < self.max_grad_norm
@@ -164,6 +177,163 @@ class ClippedAdamW:
             group["lr"] = group["schedule"](step)
         opt.step()
         return g_norm
+
+
+def params_of(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """The optimizer's parameters, in group order."""
+    return [p for g in opt.param_groups for p in g["params"]]
+
+
+@dataclasses.dataclass
+class WrappedState:
+    """State of `apply_if_finite(MultiSteps(clipped AdamW))`, with optax's
+    counters: `mini_step` within the window, `gradient_step` (windows
+    applied, the inner schedule's count), `acc` (the running mean),
+    `notfinite_count` (consecutive drops), `total_notfinite` and
+    `last_finite`."""
+    adam: torch.optim.AdamW
+    acc: Optional[List[torch.Tensor]] = None
+    mini_step: int = 0
+    gradient_step: int = 0
+    notfinite_count: int = 0
+    total_notfinite: int = 0
+    last_finite: bool = True
+
+
+class WrappedOptimizer:
+    """`optax.apply_if_finite(optax.MultiSteps(inner, every_k),
+    max_consecutive_errors)` over `ClippedAdamW`, on the `.grad` of the
+    parameters.  `every_k == 1` has no window; `max_consecutive_errors ==
+    0` has no guard; the guard reads one flag from the device per step,
+    which waits for the backward to finish."""
+
+    def __init__(self, inner: ClippedAdamW, every_k: int = 1,
+                 max_consecutive_errors: int = 0):
+        self.inner = inner
+        self.every_k = max(int(every_k), 1)
+        self.max_consecutive_errors = int(max_consecutive_errors or 0)
+
+    def init(self, trainable) -> WrappedState:
+        adam = self.inner.init(trainable)
+        acc = ([torch.zeros_like(p) for p in params_of(adam)]
+               if self.every_k > 1 else None)
+        return WrappedState(adam=adam, acc=acc)
+
+    def update_applied(self, state: WrappedState) -> bool:
+        """Whether the last `step` changed the parameters (the JAX
+        `_update_applied`: the guard's `last_finite`, and the window's
+        `mini_step` wrapping to 0)."""
+        applied = True
+        if self.max_consecutive_errors:
+            applied = state.last_finite
+        if self.every_k > 1:
+            applied = applied and state.mini_step == 0
+        return applied
+
+    @torch.no_grad()
+    def step(self, state: WrappedState, step: Optional[int] = None
+             ) -> torch.Tensor:
+        """One micro-step on the parameters' `.grad`; returns the global
+        norm of the micro-gradients.  The lr of an applied window is the
+        schedule at `state.gradient_step` (`step` is not used: dropped
+        micro-batches and the window decouple the two counts)."""
+        params = params_of(state.adam)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        g_norm = global_norm(grads)
+        if self.max_consecutive_errors:
+            finite = bool(torch.stack(
+                [torch.isfinite(g).all() for g in grads]).all())
+            state.last_finite = finite
+            if finite:
+                state.notfinite_count = 0
+            else:
+                state.notfinite_count += 1
+                state.total_notfinite += 1
+                if state.notfinite_count <= self.max_consecutive_errors:
+                    return g_norm        # dropped: nothing changes
+        if self.every_k > 1:
+            for a, g in zip(state.acc, grads):
+                a.add_((g - a) / (state.mini_step + 1))
+            if state.mini_step < self.every_k - 1:
+                state.mini_step += 1
+                self._poison_mid_window(params, state.acc)
+                return g_norm
+            grads = [a.clone() for a in state.acc]
+            for a in state.acc:
+                a.zero_()
+            state.mini_step = 0
+        for p, g in zip(params, grads):
+            p.grad = g
+        self.inner.step(state.adam, state.gradient_step)
+        state.gradient_step += 1
+        return g_norm
+
+
+    def _poison_mid_window(self, params, acc):
+        """optax.MultiSteps applies `emit * update` inside the window: zero
+        for a finite window, NaN where the inner update of a non-finite one
+        is NaN (0 * NaN).  That is every parameter behind the global-norm
+        clip (the norm is NaN), else those whose accumulated gradient is
+        non-finite.  Done on the device, without a sync."""
+        if self.inner.max_grad_norm and self.inner.max_grad_norm > 0:
+            bad = ~torch.stack([torch.isfinite(a).all() for a in acc]).all()
+            masks = [bad] * len(acc)
+        else:
+            masks = [~torch.isfinite(a) for a in acc]
+        for p, m in zip(params, masks):
+            p.masked_fill_(m, float("nan"))
+
+
+def wrap_optimizer(inner: ClippedAdamW, gradient_accumulation_steps: int = 1,
+                   skip_nonfinite_updates: int = 0
+                   ) -> Union[ClippedAdamW, WrappedOptimizer]:
+    """`inner` itself when neither option is on (as the JAX engine leaves
+    the optax chain bare), else the wrapper."""
+    if gradient_accumulation_steps <= 1 and not skip_nonfinite_updates:
+        return inner
+    return WrappedOptimizer(inner, gradient_accumulation_steps,
+                            skip_nonfinite_updates)
+
+
+def adam_of(opt_state) -> torch.optim.AdamW:
+    return opt_state.adam if isinstance(opt_state, WrappedState) \
+        else opt_state
+
+
+def opt_state_dict(opt_state) -> dict:
+    """The optimizer state as tensors and ints, parameters in group order:
+    each one's AdamW `step`, `exp_avg` and `exp_avg_sq`, and the wrapper's
+    counters and window.  The tensors are the live ones: copy them before
+    the next step."""
+    adam = adam_of(opt_state)
+    out = {"adam": [dict(adam.state[p]) for p in params_of(adam)]}
+    if isinstance(opt_state, WrappedState):
+        out.update({k: getattr(opt_state, k) for k in (
+            "mini_step", "gradient_step", "notfinite_count",
+            "total_notfinite", "last_finite")})
+        out["acc"] = opt_state.acc
+    return out
+
+
+def load_opt_state_dict(opt_state, saved: Mapping):
+    """Restore `opt_state_dict`'s output into `opt_state` in place, bit for
+    bit."""
+    adam = adam_of(opt_state)
+    params = params_of(adam)
+    if len(saved["adam"]) != len(params):
+        raise ValueError(f"optimizer state holds {len(saved['adam'])} "
+                         f"parameters, this run trains {len(params)}")
+    for p, st in zip(params, saved["adam"]):
+        adam.state[p] = {k: v.to(p.device) if k != "step" else v.clone()
+                         for k, v in st.items()}
+    if isinstance(opt_state, WrappedState):
+        for k in ("mini_step", "gradient_step", "notfinite_count",
+                  "total_notfinite", "last_finite"):
+            setattr(opt_state, k, saved[k])
+        if opt_state.acc is not None:
+            for a, v in zip(opt_state.acc, saved["acc"]):
+                a.copy_(v)
 
 
 def leaves(tree):

@@ -278,19 +278,21 @@ def save_scheduler_config(config: SchedulerConfig, model_dir: str):
 
 def _load_module(module_cls, config, model_dir: str, kind: str,
                  device: Union[str, torch.device],
-                 dtype: Optional[torch.dtype]) -> nn.Module:
+                 dtype: Optional[torch.dtype], **model_kwargs) -> nn.Module:
     """Build on the meta device, assign the file's tensors, move once."""
     with torch.device("meta"):
-        model = module_cls(config)
+        model = module_cls(config, **model_kwargs)
     sd = normalize_state_dict(read_state_dict(model_dir), kind)
     model.load_state_dict(sd, strict=True, assign=True)
     return model.to(device=device, dtype=dtype).eval()
 
 
 def load_unet(model_dir: str, device="cuda",
-              dtype: Optional[torch.dtype] = None) -> UNet3DConditionModel:
+              dtype: Optional[torch.dtype] = None,
+              fused_groupnorm: bool = False) -> UNet3DConditionModel:
     return _load_module(UNet3DConditionModel, load_unet_config(model_dir),
-                        model_dir, "unet", device, dtype)
+                        model_dir, "unet", device, dtype,
+                        fused_groupnorm=fused_groupnorm)
 
 
 def load_vae(model_dir: str, device="cuda",
@@ -305,43 +307,59 @@ def load_text_encoder(model_dir: str, device="cuda",
                         model_dir, "text_encoder", device, dtype)
 
 
-def _save_module(model: nn.Module, path: str, dtype: Optional[torch.dtype]):
-    sd = model.state_dict()
+# A model to save is a module, or a (config, state dict) pair as the JAX
+# package passes (config, params): the engine saves weights it holds apart
+# from the module (fp32 trainable tensors, LoRA collapsed in).
+SavedModel = Union[nn.Module, Tuple[object, Mapping[str, torch.Tensor]]]
+
+
+def _config_and_weights(model: SavedModel):
+    if isinstance(model, nn.Module):
+        return model.config, model.state_dict()
+    return model
+
+
+def _save_module(sd: Mapping[str, torch.Tensor], path: str,
+                 dtype: Optional[torch.dtype]):
     if dtype is not None:
         sd = {k: v.to(dtype) for k, v in sd.items()}
     write_safetensors(sd, path)
 
 
-def save_unet(model: UNet3DConditionModel, model_dir: str,
+def save_unet(model: SavedModel, model_dir: str,
               dtype: Optional[torch.dtype] = None):
+    config, sd = _config_and_weights(model)
     os.makedirs(model_dir, exist_ok=True)
-    save_unet_config(model.config, model_dir)
-    _save_module(model, os.path.join(model_dir, _WEIGHT_FILES[0]), dtype)
+    save_unet_config(config, model_dir)
+    _save_module(sd, os.path.join(model_dir, _WEIGHT_FILES[0]), dtype)
 
 
-def save_vae(model: AutoencoderKL, model_dir: str,
+def save_vae(model: SavedModel, model_dir: str,
              dtype: Optional[torch.dtype] = None):
+    config, sd = _config_and_weights(model)
     os.makedirs(model_dir, exist_ok=True)
-    save_vae_config(model.config, model_dir)
-    _save_module(model, os.path.join(model_dir, _WEIGHT_FILES[0]), dtype)
+    save_vae_config(config, model_dir)
+    _save_module(sd, os.path.join(model_dir, _WEIGHT_FILES[0]), dtype)
 
 
-def save_text_encoder(model: CLIPTextModel, model_dir: str,
+def save_text_encoder(model: SavedModel, model_dir: str,
                       dtype: Optional[torch.dtype] = None):
+    config, sd = _config_and_weights(model)
     os.makedirs(model_dir, exist_ok=True)
-    save_clip_config(model.config, model_dir)
-    _save_module(model, os.path.join(model_dir, _WEIGHT_FILES[1]), dtype)
+    save_clip_config(config, model_dir)
+    _save_module(sd, os.path.join(model_dir, _WEIGHT_FILES[1]), dtype)
 
 
 def save_pipeline(pipeline_dir: str,
-                  unet: Optional[UNet3DConditionModel] = None,
-                  vae: Optional[AutoencoderKL] = None,
-                  text_encoder: Optional[CLIPTextModel] = None,
+                  unet: Optional[SavedModel] = None,
+                  vae: Optional[SavedModel] = None,
+                  text_encoder: Optional[SavedModel] = None,
                   scheduler_config: Optional[SchedulerConfig] = None,
                   tokenizer_dir: Optional[str] = None,
                   dtype: Optional[torch.dtype] = None):
-    """Write a diffusers TextToVideoSDPipeline-layout directory; `dtype`
-    casts the stored weights (None keeps each model's own)."""
+    """Write a diffusers TextToVideoSDPipeline-layout directory; each model
+    is a module or a (config, state dict) pair; `dtype` casts the stored
+    weights (None keeps each tensor's own)."""
     os.makedirs(pipeline_dir, exist_ok=True)
     index = {"_class_name": "TextToVideoSDPipeline",
              "_diffusers_version": "0.15.0"}
