@@ -3,9 +3,11 @@ hand-written kernels (flash attention: forward K1, backward K2 dK/dV and K3
 dQ; fused GroupNorm+SiLU: forward K4, backward K5), checks each against its
 plain PyTorch version, serves three requests through the port's serving
 path, takes LoRA training steps through its training path in five
-configurations and trains configs/v2/train_config.yaml's full finetune
-through the training engine (with a checkpoint and a resume), all at the
-full width of the ms-1.7b model (random weights from a seed).
+configurations and trains configs/v2/train_config.yaml's full finetune and
+the three LoRA YAMLs (lora_training_config.yaml, stable_lora_config.yaml,
+low_vram_config_example.yaml) through the training engine (with
+checkpoints, resumes and reloads), all at the full width of the ms-1.7b
+model (random weights from a seed).
 
     python3 chip_smoke.py
 
@@ -14,11 +16,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
   2. build every kernel from csrc/ with nvcc (sm_90a), one process each,
      and print ptxas's registers, spills and wgmma serialization of each;
   3. K1 against its plain version on phase 3's shapes, the training shape,
-     phase 14's (ENGINE_SHAPE: 8 frames of 1,024 tokens) and the 576x320
-     step's (2,880 tokens), FLASH_CHECKED: fp32 on the `wmma` route, bf16
-     on both routes (`sm90` by default); K1 on both routes, its plain
-     version and SDPA's forward timed at the serving, training and 576x320
-     shapes;
+     phase 14's (ENGINE_SHAPE: 8 frames of 1,024 tokens), the hybrid
+     step's pass 1 (HYBRID_SHAPE: 1 frame), phase 18's 2 frames
+     (LOWVRAM_SHAPE) and the 576x320 step's (2,880 tokens), FLASH_CHECKED:
+     fp32 on the `wmma` route, bf16 on both routes (`sm90` by default); K1
+     on both routes, its plain version and SDPA's forward timed at the
+     serving shape and every training shape (FLASH_TIMED);
   4. the serving path: ms-1.7b UNet + 1024-wide CLIP + SD VAE written as a
      pipeline directory, loaded with `initialize_pipeline`, three requests
      answered by `generate` on the one warm pipeline, with the K1 launch
@@ -28,7 +31,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
   6. K2 and K3 against the plain backward on FLASH_CHECKED, fp32 (the
      `wmma` route) and bf16 (both routes), dO = cos(o); K2 and K3 on both
      routes, their plain versions and SDPA's backward (forward + backward
-     minus forward) timed at the training and 576x320 shapes;
+     minus forward) timed at every training shape (BWD_TIMED);
   7. the training path: `training.build.build()` (ms-1.7b, rank-16 LoRA,
      256x256x16 cached latents, two-pass loss, checkpointing with the
      "nothing" policy, AdamW), one warm step and four timed steps, with the
@@ -74,7 +77,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      from the runs' `engine.RunRecord`, and peak memory, printed;
  15. raw latents: `build(raw_latents=True)` at 256x256x16 with the SD VAE
      (pixel frames encoded in the step), one warm and two timed steps with
-     the launches checked as in phase 7, and the encode's share of a step.
+     the launches checked as in phase 7, and the encode's share of a step;
+ 16. lora_training_config.yaml's keys (LORA_CONFIG) through `engine.main`
+     on phase 4's pipeline and 8 cached 256x256x8 latents: the hybrid step
+     (cloneofsimo rank 32 on the UNet and the CLIP), 4 steps with
+     checkpoint-2 and both `.pt` files in each save; a resume from
+     checkpoint-2 with both dropouts on that retraces steps 3-4 bit for
+     bit; 2 steps with `split_two_pass` from the same seed: step 1's loss
+     equal to the fused run's bit for bit, step 2's to LOSS_BF16_RTOL, and
+     the trainable tensors after step 2 within SPLIT_PARAM_RTOL of the
+     fused run's checkpoint-2, relative to the fused run's update; both
+     runs' step peaks over those 2 steps printed.  In every run the
+     K1-K3 launches equal the derived count (per step 5 at B=8 in pass 0
+     and 5 at B=1 in the frame-1 pass, per kernel), all on `sm90`;
+ 17. stable_lora_config.yaml's keys: 3 steps with checkpoint-2, the
+     full_weights and webui files of each save, every webui key
+     CompVis-keyed and fp16; a `lora_path` reload of the full weights bit
+     for bit;
+ 18. low_vram_config_example.yaml's keys (2 frames, 8-bit AdamW, offset
+     noise, LoRA on the whole UNet with the temporal attentions' to_out
+     finetuned, text LoRA): 3 finite steps, the int8 optimizer state's
+     bytes beside fp32 AdamW's for the same tensors.
 The last two lines are the kernels record and the device record (JSON).
 K1, K2 and K3 run on two routes (ops/flash_attention.py::flash_route):
 `sm90` (csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dkv_sm90.cu,
@@ -116,7 +139,7 @@ K1_SHAPES = [
 # the 576x320 step's (latents 40x72: 2,880 tokens)
 TRAIN_SHAPE = ("train", 16, 1024, 1024, 5, 64)
 HIRES_SHAPE = ("hires", 16, 2880, 2880, 5, 64)
-FLASH_TIMED = ("slice", "train", "hires")
+FLASH_TIMED = ("slice", "train", "engine", "hybrid", "lowvram", "hires")
 FP32_TOL = 1e-4         # max |d o| and max |d lse| in fp32
 BF16_TOL = 2e-2         # max |d o| of bf16 against the fp32 plain result
 LSE16_TOL = 1e-3        # max |d lse| of bf16 K1 against the plain lse of the
@@ -199,6 +222,102 @@ TRAIN_CONFIG = {
     "attention_backend": "auto",
 }
 ENGINE_STEPS, ENGINE_CKPT, ENGINE_ITEMS = 6, 3, 8
+# phases 16-18: the keys of configs/v2/lora_training_config.yaml,
+# stable_lora_config.yaml and low_vram_config_example.yaml, held here as
+# TRAIN_CONFIG is (tests/test_torch_config.py holds them equal to the files)
+_VALIDATION = {"prompt": "", "sample_preview": True, "num_frames": 16,
+               "width": 256, "height": 256, "num_inference_steps": 25,
+               "guidance_scale": 9}
+_FOLDER_DATA = {"path": "./data/videos", "fallback_prompt": "a video",
+                "n_sample_frames": 8, "fps": 8, "width": 256, "height": 256,
+                "use_bucketing": True}
+_MESH = {"logger_type": "tensorboard", "mesh_dp": -1, "mesh_fsdp": 1,
+         "mesh_tp": 1, "attention_backend": "auto"}
+LORA_CONFIG = {
+    "pretrained_model_path": "./models/model_scope_diffusers",
+    "output_dir": "./outputs", "dataset_types": ["folder"],
+    "train_data": dict(_FOLDER_DATA), "validation_data": dict(_VALIDATION),
+    "shuffle": True, "validation_steps": 100, "trainable_modules": None,
+    "trainable_text_modules": None, "train_text_encoder": False,
+    "train_batch_size": 1, "max_train_steps": 2500, "learning_rate": 5e-06,
+    "lr_scheduler": "constant", "lr_warmup_steps": 0, "max_grad_norm": 1.0,
+    "gradient_accumulation_steps": 1, "gradient_checkpointing": True,
+    "remat_policy": "conv_attn_dense+skiplow3", "checkpointing_steps": 2500,
+    "mixed_precision": "bf16", "enable_torch_2_attn": True,
+    "cache_latents": True, "lora_version": "cloneofsimo",
+    "use_unet_lora": True, "use_text_lora": True,
+    "unet_lora_modules": ["ResnetBlock2D", "TransformerTemporalModel",
+                          "Transformer2DModel", "CrossAttention"],
+    "text_encoder_lora_modules": ["CLIPEncoderLayer"], "lora_rank": 32,
+    "lora_path": "", "lora_unet_dropout": 0.1, "lora_text_dropout": 0.1,
+    "save_pretrained_model": True, "save_lora_for_webui": False,
+    "only_lora_for_webui": False, "lora_bias": "none", **_MESH}
+STABLE_CONFIG = {
+    "pretrained_model_path": "./models/model_scope_diffusers",
+    "output_dir": "./outputs", "dataset_types": ["folder"],
+    "train_data": dict(_FOLDER_DATA), "validation_data": dict(_VALIDATION),
+    "shuffle": True, "validation_steps": 100, "trainable_modules": None,
+    "train_text_encoder": False, "train_batch_size": 1,
+    "max_train_steps": 2500, "learning_rate": 2e-05,
+    "lr_scheduler": "constant", "max_grad_norm": 1.0,
+    "gradient_accumulation_steps": 1, "gradient_checkpointing": True,
+    "remat_policy": "conv_attn_dense+skiplow3", "checkpointing_steps": 2500,
+    "mixed_precision": "bf16", "enable_torch_2_attn": True,
+    "cache_latents": True, "lora_version": "stable_lora",
+    "save_lora_for_webui": True, "only_lora_for_webui": False,
+    "lora_bias": "none", "use_unet_lora": True, "use_text_lora": True,
+    "unet_lora_modules": ["Transformer2DModel", "ResnetBlock2D"],
+    "text_encoder_lora_modules": ["CLIPAttention", "CLIPTextEmbeddings"],
+    "lora_rank": 32, "save_pretrained_model": False, **_MESH}
+LOWVRAM_CONFIG = {
+    "pretrained_model_path": "./models/model_scope_diffusers",
+    "output_dir": "./outputs", "dataset_types": ["single_video"],
+    "train_data": {"single_video_path": "./data/my_video.mp4",
+                   "single_video_prompt": "a video of",
+                   "n_sample_frames": 2, "width": 256, "height": 256,
+                   "frame_step": 1, "use_bucketing": False},
+    "validation_data": dict(_VALIDATION, sample_preview=False, num_frames=2),
+    "trainable_modules": ["attn1.to_out", "attn2.to_out"],
+    "trainable_text_modules": None, "train_text_encoder": False,
+    "train_batch_size": 1, "max_train_steps": 1250, "learning_rate": 5e-06,
+    "lr_scheduler": "constant", "max_grad_norm": 1.0,
+    "gradient_accumulation_steps": 1, "gradient_checkpointing": True,
+    "text_encoder_gradient_checkpointing": True, "checkpointing_steps": 2500,
+    "mixed_precision": "bf16", "use_8bit_adam": True,
+    "enable_torch_2_attn": True, "use_offset_noise": True,
+    "offset_noise_strength": 0.1, "cache_latents": True,
+    "use_unet_lora": True, "use_text_lora": True,
+    "lora_version": "cloneofsimo",
+    "unet_lora_modules": ["UNet3DConditionModel"],
+    "text_encoder_lora_modules": ["CLIPEncoderLayer"], "lora_rank": 8,
+    "lora_unet_dropout": 0.1, "save_pretrained_model": True, **_MESH}
+# (key, nested key or None) that every YAML phase changes: the pipeline,
+# the run directory, the 8 cached items of phase 14's kind (the `json`
+# dataset is built and never decoded), the step count and the seed
+_YAML_OVERRIDES = (
+    ("pretrained_model_path", None), ("output_dir", None),
+    ("dataset_types", None), ("train_data", "json_path"),
+    ("cached_latent_dir", None), ("max_train_steps", None), ("seed", None))
+# phase: (keys, steps, checkpoint every n steps or None (the YAML's),
+# overrides besides _YAML_OVERRIDES)
+YAML_PHASES = {
+    "lora_yaml": (LORA_CONFIG, 4, 2, (("checkpointing_steps", None),
+                                      ("validation_data", "sample_preview"),
+                                      )),
+    "stable_yaml": (STABLE_CONFIG, 3, 2, (
+        ("checkpointing_steps", None),
+        ("validation_data", "sample_preview"))),
+    "lowvram_yaml": (LOWVRAM_CONFIG, 3, None, ()),
+}
+# split vs fused: step 2's loss (step 1's update differs in rounding: the
+# split scales each pass's gradient by the dropout's 1/(1 - p) before their
+# sum, the fused step after it), and the trainable tensors after step 2,
+# ||split - fused|| against ||fused - initial||
+LOSS_BF16_RTOL = 1e-2
+SPLIT_PARAM_RTOL = 1e-2
+COMPVIS_PREFIXES = ("input_blocks.", "middle_block.", "output_blocks.",
+                    "time_embed.", "out.", "resblocks.",
+                    "text_model.embeddings.")
 # phase 14's spatial self-attention, K1-K3's input there: batch x
 # n_sample_frames frames of (height/8)(width/8) tokens, heads and head_dim
 # as in TRAIN_SHAPE (ms-1.7b's first level)
@@ -207,8 +326,17 @@ ENGINE_SHAPE = ("engine", TRAIN_CONFIG["train_batch_size"]
                 *[(TRAIN_CONFIG["train_data"]["height"] // 8)
                   * (TRAIN_CONFIG["train_data"]["width"] // 8)] * 2,
                 *TRAIN_SHAPE[4:])
+# phases 16-17's pass 1 (the hybrid step: frame 1 only, batch x 1 frame)
+# and phase 18's pass 0 (2 frames), at the same 1,024 tokens
+HYBRID_SHAPE = ("hybrid", LORA_CONFIG["train_batch_size"], *ENGINE_SHAPE[2:])
+LOWVRAM_SHAPE = ("lowvram", LOWVRAM_CONFIG["train_batch_size"]
+                 * LOWVRAM_CONFIG["train_data"]["n_sample_frames"],
+                 *ENGINE_SHAPE[2:])
 # every shape phases 3 and 6 hold K1-K3 against their plain versions at
-FLASH_CHECKED = K1_SHAPES + [TRAIN_SHAPE, ENGINE_SHAPE, HIRES_SHAPE]
+FLASH_CHECKED = K1_SHAPES + [TRAIN_SHAPE, ENGINE_SHAPE, HYBRID_SHAPE,
+                             LOWVRAM_SHAPE, HIRES_SHAPE]
+# and the shapes at which they time K2 and K3 (K1 also at "slice")
+BWD_TIMED = ("train", "engine", "hybrid", "lowvram", "hires")
 # (key, nested key or None): what engine_config changes.  sample_preview is
 # off because the engine samples at step 1 whatever validation_steps says
 # (JAX engine.py:110-112) and writes the sample with cv2, which the card's
@@ -432,7 +560,7 @@ def check_k2_k3(fa):
         worst["K2"] = max(worst["K2"], e16[1], e16[2])
         worst["K2_wmma"] = max(worst["K2_wmma"], e16w[1], e16w[2])
         del ref, got16, plain16, wmma16
-        if label not in ("train", "hires"):
+        if label not in BWD_TIMED:
             continue
         k2_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args))
         k2_wmma = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
@@ -652,8 +780,20 @@ def read_counts():
 
 
 def zero_counts():
+    from text_to_video_finetuning_tpu_torch.ops import flash_attention as fa
     for m, a in counters().values():
         setattr(m, a, 0)
+    fa.batch_launch_counts = {}
+
+
+def read_batch_counts():
+    """{K1 | K2 | K3: {batch: launches}} from the wrappers' counts by
+    batch."""
+    from text_to_video_finetuning_tpu_torch.ops import flash_attention as fa
+    out = {"K1": {}, "K2": {}, "K3": {}}
+    for (kernel, batch), n in fa.batch_launch_counts.items():
+        out[{"fwd": "K1", "dkv": "K2", "dq": "K3"}[kernel]][batch] = n
+    return out
 
 
 def unet_levels(unet):
@@ -1176,21 +1316,23 @@ def engine_config(pipeline_dir, output_dir, json_path, cache_dir, **extra):
     return cfg
 
 
-def write_engine_data(pipeline_dir, root):
+def write_engine_data(pipeline_dir, root, config=TRAIN_CONFIG,
+                      name="latents"):
     """ENGINE_ITEMS cached items from the seed, written with the port's
-    `cache_write_item`: latents (4, F, 32, 32) fp32, the prompt's ids from
-    the pipeline's tokenizer; and an ENGINE_ITEMS-entry json for the `json`
-    dataset (built, never decoded: the engine trains from the cache)."""
+    `cache_write_item` under `root/name`: latents (4, F, 32, 32) fp32 with
+    F the config's n_sample_frames, the prompt's ids from the pipeline's
+    tokenizer; and an ENGINE_ITEMS-entry json for the `json` dataset
+    (built, never decoded: the engine trains from the cache)."""
     import numpy as np
     from text_to_video_finetuning_tpu_torch.data import native as dnative
     from text_to_video_finetuning_tpu_torch.utils.tokenizer import (
         CLIPTokenizer)
 
     tok = CLIPTokenizer.from_pretrained(f"{pipeline_dir}/tokenizer")
-    frames = TRAIN_CONFIG["train_data"]["n_sample_frames"]
-    lh = TRAIN_CONFIG["train_data"]["height"] // 8
-    lw = TRAIN_CONFIG["train_data"]["width"] // 8
-    cache_dir, entries = f"{root}/latents", []
+    frames = config["train_data"]["n_sample_frames"]
+    lh = config["train_data"]["height"] // 8
+    lw = config["train_data"]["width"] // 8
+    cache_dir, entries = f"{root}/{name}", []
     os.makedirs(cache_dir, exist_ok=True)
     g = torch.Generator().manual_seed(SEED + 14)
     for i in range(ENGINE_ITEMS):
@@ -1203,7 +1345,7 @@ def write_engine_data(pipeline_dir, root):
             fail(f"cache_write_item failed for item {i}")
         entries.append({"video_path": f"{root}/videos/{i}.mp4",
                         "data": [{"frame_index": 1, "prompt": prompt}]})
-    json_path = f"{root}/train.json"
+    json_path = f"{root}/{name}.json"
     with open(json_path, "w") as f:
         json.dump({"data": entries}, f)
     print(f"engine data: {ENGINE_ITEMS} cached items (4, {frames}, {lh}, "
@@ -1225,6 +1367,18 @@ def same_tree(a, b) -> bool:
         return (type(a) is type(b) and len(a) == len(b)
                 and all(same_tree(x, y) for x, y in zip(a, b)))
     return a == b
+
+
+def tree_distance(a, b) -> float:
+    """The L2 norm of a - b over two trees (dicts of tensors) with the same
+    keys, in fp64."""
+    def squared(x, y):
+        if isinstance(x, torch.Tensor):
+            return float(((x.double() - y.double()) ** 2).sum())
+        if sorted(x) != sorted(y):
+            fail(f"tree_distance: keys {sorted(x)[:3]} vs {sorted(y)[:3]}")
+        return sum(squared(x[k], y[k]) for k in x)
+    return math.sqrt(squared(a, b))
 
 
 def same_state(a, b) -> dict:
@@ -1251,51 +1405,67 @@ def check_pipeline_dir(path, label, train_state):
           f", {size / 2**30:.2f} GiB")
 
 
-def engine_expected():
-    """K1-K5 launches per step of the engine's step: the ms-1.7b UNet under
-    the config's policy at batch 1, n_sample_frames frames and 32x32
-    latents, derived by `expected_train_launches` (a meta-device model)."""
+def engine_expected(config=TRAIN_CONFIG):
+    """K1-K5 launches per step of the engine's step on `config`: the
+    ms-1.7b UNet under the config's policy at its batch, n_sample_frames
+    frames and (height/8)x(width/8) latents, derived by
+    `expected_train_launches` (a meta-device model).  Both passes run: the
+    configs keep `two_pass_loss` on, and a text LoRA's pass 1 (frame 1
+    only) launches what pass 0 does, at the same 1,024 tokens."""
     from text_to_video_finetuning_tpu_torch.models.unet3d import (
         UNET3D_MS_1_7B_CONFIG, UNet3DConditionModel)
 
-    td = TRAIN_CONFIG["train_data"]
+    td = config["train_data"]
     with torch.device("meta"):
         unet = UNet3DConditionModel(UNET3D_MS_1_7B_CONFIG)
-        latents = torch.empty((TRAIN_CONFIG["train_batch_size"], 4,
+        latents = torch.empty((config["train_batch_size"], 4,
                                td["n_sample_frames"], td["height"] // 8,
                                td["width"] // 8))
-    unet.set_gradient_checkpointing(TRAIN_CONFIG["gradient_checkpointing"],
-                                    TRAIN_CONFIG["remat_policy"])
-    cfg = type("StepCfg", (), {"two_pass": True, "cache_latents": True})
+    unet.set_gradient_checkpointing(config["gradient_checkpointing"],
+                                    config.get("remat_policy", "nothing"))
+    two_pass = config.get("two_pass_loss", True) or config.get(
+        "use_text_lora", False)
+    cfg = type("StepCfg", (), {"two_pass": two_pass, "cache_latents": True})
     return expected_train_launches(unet, {"pixel_values": latents}, cfg)
+
+
+def span_peaks(record):
+    """The run's `RunRecord.peaks` in GiB: {span: GiB}."""
+    return {span: n / 2**30 for span, n in record.peaks}
 
 
 def run_engine(label, cfg, steps, expected):
     """One `engine.main(**cfg)` run on the card with the launches of its
     steps counted (zeroed just before, read just after) and held against
     `steps` x `expected`, every K1-K5 launch on `sm90`.  Returns (output
-    dir, launches, the run's `RunRecord`: step times and losses, save
-    times, the restored and final train states)."""
+    dir, launches, the K1-K3 launches by batch, the run's `RunRecord`:
+    step times and losses, save times, the initial and final train
+    states, the peak of each span of the run)."""
     from text_to_video_finetuning_tpu_torch.training import engine
 
     record = engine.RunRecord()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     zero_counts()                                   # the path starts here
     t0 = time.perf_counter()
     out = engine.main(record=record, **cfg)
     seconds = time.perf_counter() - t0
     launches = read_counts()                        # read just after it
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    by_batch = read_batch_counts()
+    peaks = span_peaks(record)
+    steps_peak = max((p for s, p in peaks.items() if s.startswith("step ")),
+                     default=float("nan"))
     losses = [loss for _, loss in record.steps]
     times = sorted(t for t, _ in record.steps[1:])
     median = times[len(times) // 2] if times else float("nan")
     print(f"[{label}] engine.main: {seconds:.1f} s, {len(record.steps)} "
           f"steps, losses {[f'{x:.6f}' for x in losses]}, step time median "
           f"{median:.4f} s of {len(times)} timed steps "
-          f"({[f'{t:.4f}' for t, _ in record.steps]}), peak "
-          f"{peak:.2f} GiB, saves "
+          f"({[f'{t:.4f}' for t, _ in record.steps]}), saves "
           f"{[(k, round(t, 2)) for k, t in record.saves]}")
+    print(f"[{label}] peak memory: run {max(peaks.values()):.2f} GiB; "
+          f"set-up {peaks['set-up']:.2f}, steps {steps_peak:.2f}, final "
+          f"save {peaks['final save']:.2f} GiB; every span "
+          f"{ {s: round(p, 2) for s, p in peaks.items()} }")
     if len(record.steps) != steps:
         fail(f"[{label}] {len(record.steps)} steps, expected {steps}")
     if not all(math.isfinite(x) for x in losses):
@@ -1310,7 +1480,7 @@ def run_engine(label, cfg, steps, expected):
     if any(launches[f"{k}_{off}"] or launches[f"{k}_sm90"] != got[k]
            for k, off in OFF_ROUTE.items()):
         fail(f"[{label}] K1-K5 not all on the sm90 route: {by_route}")
-    return out, launches, record
+    return out, launches, by_batch, record
 
 
 def engine_phase(pipeline_dir, root):
@@ -1332,8 +1502,8 @@ def engine_phase(pipeline_dir, root):
     try:
         cfg = engine_config(pipeline_dir, f"{root}/runs", json_path,
                             cache_dir)
-        out, launches, first = run_engine("engine", cfg, ENGINE_STEPS,
-                                          expected)
+        out, launches, _, first = run_engine("engine", cfg, ENGINE_STEPS,
+                                             expected)
         ckpt = os.path.join(out, f"checkpoint-{ENGINE_CKPT}")
         check_pipeline_dir(ckpt, f"checkpoint-{ENGINE_CKPT}", True)
         check_pipeline_dir(out, "final pipeline", False)
@@ -1353,11 +1523,9 @@ def engine_phase(pipeline_dir, root):
         cfg = engine_config(pipeline_dir, f"{root}/resumed", json_path,
                             cache_dir, resume_from_checkpoint=ckpt,
                             resume_step=ENGINE_CKPT)
-        resumed_out, resumed, second = run_engine(
+        resumed_out, resumed, _, second = run_engine(
             "engine resumed", cfg, ENGINE_STEPS - ENGINE_CKPT, expected)
-        if second.restored is None:
-            fail("resume: the engine restored no train state")
-        restored = same_state(second.restored, saved)
+        restored = same_state(second.initial, saved)
         print(f"resume from checkpoint-{ENGINE_CKPT}: restored state equal "
               f"to the saved file: {restored}")
         if not all(restored.values()):
@@ -1413,6 +1581,282 @@ def raw_latents_phase():
     if not torch.isfinite(lat).all():
         fail("raw latents: non-finite encode")
     return launches
+
+
+def yaml_config(phase, pipeline_dir, output_dir, json_path, cache_dir,
+                **extra):
+    """The YAML_PHASES config of `phase` with its overrides applied (and
+    `extra`, for the runs that resume, reload or split)."""
+    keys, steps, ckpt, _ = YAML_PHASES[phase]
+    cfg = json.loads(json.dumps(keys))                   # a deep copy
+    cfg.update(pretrained_model_path=pipeline_dir, output_dir=output_dir,
+               dataset_types=["json"], cached_latent_dir=cache_dir,
+               max_train_steps=steps, seed=SEED)
+    if ckpt is not None:
+        cfg["checkpointing_steps"] = ckpt
+    cfg["train_data"]["json_path"] = json_path
+    cfg["validation_data"]["sample_preview"] = False
+    cfg.update(extra)
+    return cfg
+
+
+def yaml_overrides(phase):
+    return set(_YAML_OVERRIDES) | set(YAML_PHASES[phase][3])
+
+
+def expected_batches(config, expected, steps):
+    """{kernel: {batch: calls}} over `steps` steps: half of each K1-K3
+    count in pass 0 at batch x frames, half in pass 1, at batch x 1 when a
+    text LoRA makes it the frame-1 pass."""
+    td, b = config["train_data"], config["train_batch_size"]
+    b0, b1 = b * td["n_sample_frames"], (
+        b if config.get("use_text_lora") else b * td["n_sample_frames"])
+    out = {}
+    for k in ("K1", "K2", "K3"):
+        per_pass = steps * expected[k] // 2
+        out[k] = {b0: per_pass}
+        out[k][b1] = out[k].get(b1, 0) + per_pass
+    return out
+
+
+def step_peaks(record):
+    """Each step's peak memory in GiB, in step order."""
+    return [p for s, p in span_peaks(record).items() if s.startswith("step ")]
+
+
+def run_yaml(label, phase, cfg, steps):
+    """`run_engine` on a YAML phase's config, with the K1-K3 launches by
+    batch held against `expected_batches`.  Returns (output dir, launches,
+    the run's `RunRecord`)."""
+    keys = YAML_PHASES[phase][0]
+    expected = engine_expected(keys)
+    out, launches, by_batch, record = run_engine(label, cfg, steps, expected)
+    want = expected_batches(keys, expected, steps) if steps else {
+        k: {} for k in by_batch}
+    print(f"[{label}] K1-K3 launches by batch {by_batch} (expected {want}); "
+          f"step peaks {[f'{p:.2f}' for p in step_peaks(record)]} GiB")
+    if by_batch != want:
+        fail(f"[{label}] K1-K3 launches by batch {by_batch}, expected {want}")
+    return out, launches, record
+
+
+def lora_files(path):
+    """Relative paths of the files under path/lora."""
+    root = os.path.join(path, "lora")
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def same_trainable(a, b, label):
+    parts = same_state(a, b)
+    if not parts.get("trainable"):
+        fail(f"{label}: the trainable tensors differ")
+
+
+def lora_yaml_phase(pipeline_dir, root):
+    """Phase 16: `engine.main` on lora_training_config.yaml's keys (the
+    hybrid step: cloneofsimo LoRA of rank 32 on the UNet and the CLIP's
+    CLIPEncoderLayer, dropouts 0.1, the headline policy) at full width:
+    4 steps with checkpoint-2, the `.pt` files of both LoRAs in each save;
+    a resume from checkpoint-2 that retraces steps 3-4 bit for bit (losses
+    and final train state); then 2 steps with `split_two_pass` from the
+    same seed, held against the fused run: step 1's loss bit for bit (the
+    same forward on the same draws), step 2's to LOSS_BF16_RTOL, and the
+    trainable tensors after step 2 against checkpoint-2's, within
+    SPLIT_PARAM_RTOL of the fused update's norm (the witness of the split
+    step's gradients); step peaks printed beside the fused run's.  Returns
+    the launches of the three runs."""
+    from text_to_video_finetuning_tpu_torch.utils import train_state_io
+
+    phase, (_, steps, ckpt_every, _) = "lora_yaml", YAML_PHASES["lora_yaml"]
+    cache_dir, json_path = write_engine_data(pipeline_dir, root, LORA_CONFIG,
+                                             "lora_latents")
+    runs = f"{root}/lora_runs"
+    try:
+        out, launches, first = run_yaml(
+            "lora_yaml", phase, yaml_config(
+                phase, pipeline_dir, f"{runs}/a", json_path, cache_dir),
+            steps)
+        ckpt = os.path.join(out, f"checkpoint-{ckpt_every}")
+        for where, step in ((ckpt, ckpt_every), (out, steps)):
+            names = lora_files(where)
+            print(f"[lora_yaml] {where}: lora/{names}")
+            if names != [f"{step}_text_encoder.pt", f"{step}_unet.pt"]:
+                fail(f"[lora_yaml] {where}/lora holds {names}")
+        check_pipeline_dir(ckpt, f"checkpoint-{ckpt_every}", True)
+        saved = train_state_io.read_train_state(ckpt)
+        sizes = {g: sum(t.numel() for e in tree.values() for t in e.values())
+                 for g, tree in saved["trainable"].items()}
+        print(f"[lora_yaml] trainable parameters by group: {sizes}")
+        if sorted(sizes) != ["text_lora", "unet_lora"]:
+            fail(f"[lora_yaml] trainable groups {sorted(sizes)}")
+        shutil.rmtree(os.path.join(out, f"checkpoint-{steps}"))
+
+        _, resumed, second = run_yaml(
+            "lora_yaml resumed", phase, yaml_config(
+                phase, pipeline_dir, f"{runs}/b", json_path, cache_dir,
+                resume_from_checkpoint=ckpt, resume_step=ckpt_every),
+            steps - ckpt_every)
+        if not all(same_state(second.initial, saved).values()):
+            fail("[lora_yaml] the resume did not restore checkpoint-"
+                 f"{ckpt_every}'s train state")
+        pairs = list(zip(first.steps[ckpt_every:], second.steps))
+        for i, ((_, want), (_, got)) in enumerate(pairs):
+            print(f"[lora_yaml] step {ckpt_every + 1 + i}: loss "
+                  f"uninterrupted {want.hex()}, resumed {got.hex()}")
+        if [g for _, (_, g) in pairs] != [w for (_, w), _ in pairs]:
+            fail("[lora_yaml] the resumed losses differ from the "
+                 "uninterrupted run's")
+        final = same_state(second.final, first.final)
+        print(f"[lora_yaml] final train state, resumed vs uninterrupted: "
+              f"{final}")
+        if not all(final.values()):
+            fail(f"[lora_yaml] the resumed run ends elsewhere: {final}")
+        shutil.rmtree(f"{runs}/a")
+        shutil.rmtree(f"{runs}/b")
+
+        # as many split steps as checkpoint-2 holds fused ones
+        _, split, third = run_yaml(
+            "lora_yaml split", phase, yaml_config(
+                phase, pipeline_dir, f"{runs}/c", json_path, cache_dir,
+                split_two_pass=True, max_train_steps=ckpt_every,
+                checkpointing_steps=ckpt_every + 1), ckpt_every)
+        fused = [loss for _, loss in first.steps[:ckpt_every]]
+        got = [loss for _, loss in third.steps]
+        # the first steps of both runs: no save in flight (the fused run's
+        # checkpoint-2 pipeline write overlaps its step 3)
+        print(f"[lora_yaml] split vs fused losses "
+              f"{[x.hex() for x in got]} vs {[x.hex() for x in fused]}; "
+              f"step peaks over steps 1-{ckpt_every}: split "
+              f"{max(step_peaks(third)):.2f} GiB, fused "
+              f"{max(step_peaks(first)[:ckpt_every]):.2f} GiB")
+        if got[0] != fused[0] or any(
+                abs(g - f) > LOSS_BF16_RTOL * abs(f)
+                for g, f in zip(got[1:], fused[1:])):
+            fail(f"[lora_yaml] split losses {got} differ from fused {fused}")
+        off = tree_distance(third.final["trainable"], saved["trainable"])
+        update = tree_distance(saved["trainable"],
+                               first.initial["trainable"])
+        bitwise = same_tree(third.final["trainable"], saved["trainable"])
+        print(f"[lora_yaml] trainable after step {ckpt_every}: "
+              f"||split - fused|| {off:.6e}, ||fused - initial|| "
+              f"{update:.6e} ({off / update:.3e}), bit for bit: {bitwise}")
+        if not update > 0 or not off <= SPLIT_PARAM_RTOL * update:
+            fail(f"[lora_yaml] split trainable tensors {off:.3e} from the "
+                 f"fused run's, against an update of {update:.3e}")
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    return launches, resumed, split
+
+
+def stable_yaml_phase(pipeline_dir, root):
+    """Phase 17: `engine.main` on stable_lora_config.yaml's keys (loralib
+    rank 32 on Transformer2DModel / ResnetBlock2D and the CLIP's attention
+    and embeddings, the webui export on, no pipeline) at full width: 3
+    steps with checkpoint-2; the full_weights and webui files of each save,
+    every webui key CompVis-keyed and fp16 with the metadata; then a run of
+    no steps from `lora_path` = the final full_weights: the LoRA it loads,
+    and the files it writes back, equal the saved ones bit for bit.
+    Returns the launches of the run."""
+    from text_to_video_finetuning_tpu_torch.utils import checkpoint as ckpt
+
+    phase, (_, steps, ckpt_every, _) = ("stable_yaml",
+                                         YAML_PHASES["stable_yaml"])
+    cache_dir, json_path = write_engine_data(
+        pipeline_dir, root, STABLE_CONFIG, "stable_latents")
+    runs = f"{root}/stable_runs"
+    name = "lora_text_to_video"
+    try:
+        out, launches, first = run_yaml(
+            "stable_yaml", phase, yaml_config(
+                phase, pipeline_dir, f"{runs}/a", json_path, cache_dir),
+            steps)
+        for where, step in ((os.path.join(out, f"checkpoint-{ckpt_every}"),
+                             ckpt_every), (out, steps)):
+            names = lora_files(where)
+            want = sorted([f"full_weights/{step}_{name}_{kind}.safetensors"
+                           for kind in ("text_encoder", "unet")]
+                          + [f"webui_{step}_{name}.safetensors"])
+            print(f"[stable_yaml] {where}: lora/{names}")
+            if names != want:
+                fail(f"[stable_yaml] {where}/lora holds {names}")
+        if os.path.exists(os.path.join(out, "unet")):
+            fail("[stable_yaml] a pipeline was saved (save_pretrained_model "
+                 "is False)")
+        webui, meta = ckpt.read_safetensors(os.path.join(
+            out, "lora", f"webui_{steps}_{name}.safetensors"),
+            with_metadata=True)
+        bad = [k for k, v in webui.items()
+               if not k.startswith(COMPVIS_PREFIXES)
+               or v.dtype != torch.float16]
+        print(f"[stable_yaml] webui file: {len(webui)} tensors, "
+              f"{sum(v.numel() for v in webui.values()):,} fp16 values, "
+              f"metadata {meta}, not CompVis-keyed fp16: {bad[:5]}")
+        if bad or not webui or meta.get("stable_lora_text_to_video") != "v1":
+            fail(f"[stable_yaml] webui keys or metadata: {bad[:5]} {meta}")
+        full = os.path.join(out, "lora", "full_weights")
+        back, _, reloaded = run_yaml(
+            "stable_yaml reload", phase, yaml_config(
+                phase, pipeline_dir, f"{runs}/b", json_path, cache_dir,
+                lora_path=full, max_train_steps=0), 0)
+        same_trainable(reloaded.final, first.final, "[stable_yaml] reload")
+        for kind in ("unet", "text_encoder"):
+            a = ckpt.read_safetensors(os.path.join(
+                full, f"{steps}_{name}_{kind}.safetensors"))
+            b = ckpt.read_safetensors(os.path.join(
+                back, "lora", "full_weights", f"0_{name}_{kind}.safetensors"))
+            if sorted(a) != sorted(b) or not all(
+                    torch.equal(a[k], b[k]) for k in a):
+                fail(f"[stable_yaml] {kind} full weights not reloaded bit "
+                     "for bit")
+        print("[stable_yaml] lora_path reload: the LoRA and its files equal "
+              "the saved ones bit for bit")
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    return launches
+
+
+def lowvram_yaml_phase(pipeline_dir, root):
+    """Phase 18: `engine.main` on low_vram_config_example.yaml's keys (2
+    frames, 8-bit AdamW, offset noise, LoRA rank 8 on the whole UNet with
+    the temporal attentions' to_out finetuned, text LoRA, the "nothing"
+    policy) at full width: 3 finite steps; the optimizer state's bytes
+    printed beside those fp32 AdamW would hold for the same tensors.
+    Returns the launches of the run."""
+    phase, (_, steps, _, _) = "lowvram_yaml", YAML_PHASES["lowvram_yaml"]
+    cache_dir, json_path = write_engine_data(
+        pipeline_dir, root, LOWVRAM_CONFIG, "lowvram_latents")
+    runs = f"{root}/lowvram_runs"
+    try:
+        _, launches, record = run_yaml(
+            "lowvram_yaml", phase, yaml_config(
+                phase, pipeline_dir, f"{runs}/a", json_path, cache_dir),
+            steps)
+        final = record.final
+        numel = {g: sum(t.numel() for t in _tensors(tree))
+                 for g, tree in final["trainable"].items()}
+        state = final["opt"]["adam"]
+        int8 = sum(t.numel() * t.element_size() for st in state
+                   for k, t in st.items() if k != "step")
+        fp32 = 2 * 4 * sum(numel.values())
+        dtypes = sorted({str(st["mu_values"].dtype) for st in state})
+        print(f"[lowvram_yaml] trainable by group {numel}; optimizer state "
+              f"{int8:,} bytes (moments {dtypes} + fp32 scales) against "
+              f"{fp32:,} for fp32 AdamW ({int8 / fp32:.3f})")
+        if dtypes != ["torch.int8"] or sorted(numel) != [
+                "text_lora", "unet", "unet_lora"]:
+            fail(f"[lowvram_yaml] state {dtypes}, groups {sorted(numel)}")
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    return launches
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for v in tree.values():
+            yield from _tensors(v)
 
 
 def main() -> int:
@@ -1499,11 +1943,21 @@ def main() -> int:
     # 14. the engine at full width (train_config.yaml), and its resume
     by_path["engine"], by_path["engine_resumed"] = engine_phase(
         pipeline_dir, workdir.name)
-    workdir.cleanup()
     torch.cuda.empty_cache()
 
     # 15. raw latents: the in-step VAE encode at 256x256x16
     by_path["raw_latents"] = raw_latents_phase()
+    torch.cuda.empty_cache()
+
+    # 16-18. the three LoRA YAMLs through the engine on phase 4's pipeline
+    (by_path["lora_yaml"], by_path["lora_yaml_resumed"],
+     by_path["lora_yaml_split"]) = lora_yaml_phase(pipeline_dir,
+                                                   workdir.name)
+    torch.cuda.empty_cache()
+    by_path["stable_yaml"] = stable_yaml_phase(pipeline_dir, workdir.name)
+    torch.cuda.empty_cache()
+    by_path["lowvram_yaml"] = lowvram_yaml_phase(pipeline_dir, workdir.name)
+    workdir.cleanup()
     torch.cuda.empty_cache()
 
     def launches(k):
@@ -1531,7 +1985,9 @@ def main() -> int:
          "launches_by_route": by_route("K1"), **k1_timed["slice"],
          "shape": "B=32 S=1024 H=5 D=64 bf16 (serving)",
          "train_shape": k1_timed["train"],
-         "hires_shape": k1_timed["hires"]},
+         "hires_shape": k1_timed["hires"],
+         **{f"{label}_shape": k1_timed[label]
+            for label in ("engine", "hybrid", "lowvram")}},
         {"name": "flash_attn_dkv_sm90", "route": "cuda",
          "source": source + "flash_attn_dkv_sm90.cu",
          "replaces": replaces + "154",
@@ -1540,7 +1996,9 @@ def main() -> int:
          "launches_by_path": launches("K2"),
          "launches_by_route": by_route("K2"), **bwd["K2"]["train"],
          "shape": "B=16 S=1024 H=5 D=64 bf16 (training)",
-         "hires_shape": bwd["K2"]["hires"]},
+         "hires_shape": bwd["K2"]["hires"],
+         **{f"{label}_shape": bwd["K2"][label]
+            for label in ("engine", "hybrid", "lowvram")}},
         {"name": "flash_attn_dq_sm90", "route": "cuda",
          "source": source + "flash_attn_dq_sm90.cu",
          "replaces": replaces + "196",
@@ -1549,7 +2007,9 @@ def main() -> int:
          "launches_by_path": launches("K3"),
          "launches_by_route": by_route("K3"), **bwd["K3"]["train"],
          "shape": "B=16 S=1024 H=5 D=64 bf16 (training)",
-         "hires_shape": bwd["K3"]["hires"]},
+         "hires_shape": bwd["K3"]["hires"],
+         **{f"{label}_shape": bwd["K3"][label]
+            for label in ("engine", "hybrid", "lowvram")}},
     ]
     for k, name, line in (("K4", "group_norm_silu_fwd_sm90", "44"),
                           ("K5", "group_norm_silu_bwd_sm90", "70")):

@@ -1,12 +1,14 @@
 """The port's `config.py` against the JAX package's, and `chip_smoke.py`'s
-copy of train_config.yaml against the file.
+copies of the configs/v2 YAMLs against the files.
 
 * each of the four configs/v2/*.yaml parses to equal `asdict` in both
   packages;
 * unknown keys land in `extra_kwargs`, fp16 maps to bf16, and
   `save_config`'s flow-style YAML round-trips;
 * phase 14's TRAIN_CONFIG equals train_config.yaml, and `engine_config`
-  changes only the keys ENGINE_OVERRIDES lists.
+  changes only the keys ENGINE_OVERRIDES lists; phases 16-18's copies of
+  the three LoRA YAMLs equal the files, and `yaml_config` changes only the
+  keys `yaml_overrides` lists.
 """
 
 import dataclasses
@@ -84,6 +86,34 @@ def test_chip_smoke_holds_train_config_yaml():
     smoke = _smoke()
     with open(os.path.join(REPO, "configs", "v2", "train_config.yaml")) as f:
         assert smoke["TRAIN_CONFIG"] == yaml.safe_load(f)
+
+
+@pytest.mark.parametrize("phase,name", [
+    ("lora_yaml", "lora_training_config.yaml"),
+    ("stable_yaml", "stable_lora_config.yaml"),
+    ("lowvram_yaml", "low_vram_config_example.yaml")])
+def test_chip_smoke_holds_the_lora_yamls(phase, name):
+    """Phases 16-18 train the LoRA YAMLs' keys, held inline, changing only
+    what `yaml_overrides` lists; the engine parses each to the YAML's own
+    config, overrides aside."""
+    smoke = _smoke()
+    base = smoke["YAML_PHASES"][phase][0]
+    with open(os.path.join(REPO, "configs", "v2", name)) as f:
+        assert base == yaml.safe_load(f)
+    cfg = smoke["yaml_config"](phase, "/p", "/o", "/j.json", "/c")
+    changed = set()
+    for key in set(base) | set(cfg):
+        if isinstance(base.get(key), dict):
+            changed |= {(key, k) for k in set(base[key]) | set(cfg[key])
+                        if base[key].get(k) != cfg[key].get(k)}
+        elif base.get(key) != cfg.get(key):
+            changed.add((key, None))
+    assert changed == smoke["yaml_overrides"](phase)
+    assert cfg["seed"] == 0 and cfg["cached_latent_dir"] == "/c"
+    parsed = pconfig.train_config_from_dict(cfg)
+    assert parsed.extra_kwargs == {}
+    assert parsed.use_unet_lora and parsed.use_text_lora
+    assert parsed.validation_steps > parsed.max_train_steps
 
 
 def test_chip_smoke_overrides_only_what_it_lists():

@@ -6,8 +6,10 @@ card.
   no `text_to_video_finetuning_tpu` module (without `_torch`), `jax` or
   `flax` is in `sys.modules`.  The same holds for `chip_smoke.py`.
 * The port's own copies of the JAX package's numpy-only modules agree with
-  them: the flax <-> torch name map and the minimal tokenizer writer
-  (byte-identical files).
+  them: the flax <-> torch name map, the CompVis key converters (the webui
+  export's) and the minimal tokenizer writer (byte-identical files); the
+  walk imports the modules that came with the LoRA flavours, 8-bit AdamW
+  and the split step.
 * `load_unet`, `load_vae`, `load_text_encoder`, `engine.main` and
   `cli.train_main` default to "cuda"; the CPU tests pass device="cpu";
 * the modules that the card's machine must import without cv2, yaml, PIL
@@ -78,6 +80,47 @@ def test_torch_names_copy_agrees_with_the_jax_package():
         key = ours.flax_to_torch_key(path, "unet") + ".weight"
         assert ours.torch_key_to_flax(key, "unet") == \
             ref.torch_key_to_flax(key, "unet")
+
+
+def test_new_modules_are_walked_and_standalone():
+    proc = _run("assert {'text_to_video_finetuning_tpu_torch.ops."
+                "quantized_adam', 'text_to_video_finetuning_tpu_torch.utils."
+                "convert_compvis', 'text_to_video_finetuning_tpu_torch.lora."
+                "formats'} <= set(names)")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("model", ["unet", "text_encoder"])
+def test_convert_compvis_copy_agrees_with_the_jax_package(model):
+    import numpy as np
+    import torch
+    from text_to_video_finetuning_tpu.utils import convert_compvis as ref
+    from text_to_video_finetuning_tpu_torch.models.clip_text import (
+        CLIPTextModel)
+    from text_to_video_finetuning_tpu_torch.models.unet3d import (
+        UNet3DConditionModel)
+    from text_to_video_finetuning_tpu_torch.utils import (
+        convert_compvis as ours)
+
+    with torch.device("meta"):
+        module = (UNet3DConditionModel() if model == "unet"
+                  else CLIPTextModel())
+    keys = list(module.state_dict())
+    # the stable_lora keys of the webui export, beside the weights
+    keys += [k.rsplit(".", 1)[0] + leaf for k in keys[::7]
+             for leaf in (".lora_A", ".lora_B")]
+    rs = np.random.RandomState(0)
+    arrays = {k: rs.randn(2, 3).astype(np.float32) for k in keys}
+    tensors = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    if model == "unet":
+        got = ours.convert_unet_state_dict(tensors, strict_mapping=True)
+        want = ref.convert_unet_state_dict(arrays, strict_mapping=True)
+    else:
+        got = ours.convert_text_enc_state_dict_v20(tensors)
+        want = ref.convert_text_enc_state_dict_v20(arrays)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k])
 
 
 def test_minimal_tokenizer_writer_matches_the_jax_package(tmp_path):

@@ -310,7 +310,8 @@ def test_sm90_reads_strided_bshd(cuda):
 def test_route_rule_counts_each_route(cuda):
     """bf16 / fp16 at head_dim 64 take sm90; fp32 and head_dim 40 take
     wmma, for K1, K2 and K3 alike; `route="wmma"` forces the first design on
-    a 16-bit call; the totals count every launch."""
+    a 16-bit call; the totals, and the counts by batch, count every
+    launch."""
     totals = ("launch_count", "dkv_launch_count", "dq_launch_count")
     cases = [(torch.bfloat16, 64, "sm90"), (torch.float16, 64, "sm90"),
              (torch.float32, 64, "wmma"), (torch.bfloat16, 40, "wmma")]
@@ -321,6 +322,7 @@ def test_route_rule_counts_each_route(cuda):
         delta = fa.attention_delta(o, o)
         before = _route_counts()
         before_totals = [getattr(fa, c) for c in totals]
+        fa.batch_launch_counts = {}
         fa.flash_attention_cuda(q, k, v, d ** -0.5)
         fa.flash_attention_bwd_dkv_cuda(q, k, v, o, lse, delta, d ** -0.5)
         fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, delta, d ** -0.5)
@@ -329,6 +331,8 @@ def test_route_rule_counts_each_route(cuda):
             (dtype, d)
         assert [getattr(fa, c) - n
                 for c, n in zip(totals, before_totals)] == [1, 1, 1]
+        assert fa.batch_launch_counts == {("fwd", 2): 1, ("dkv", 2): 1,
+                                          ("dq", 2): 1}
     q, k, v = (t.bfloat16() for t in _qkv(cuda, 2, 130, 70, 2, 64))
     before = _route_counts()
     o_wmma, _ = fa.flash_attention_cuda(q, k, v, 0.125, route="wmma")

@@ -8,8 +8,10 @@
   `LoraConv` with a `lora` collection (fp32, atol 1e-5);
 * cloneofsimo `.pt` files: the port's load through JAX's `load_lora_pt`
   bitwise, and JAX's through the port's;
-* `lora_from_jax`, `prepare_branch` (scale, weight dropout), the handler's
-  init / save / load, and the options that are not ported yet.
+* `lora_from_jax`, `prepare_branch` (scale, weight dropout), and the
+  handler's init / save / load.  The text encoder's and stable_lora's
+  sites, layers and files are in test_torch_text_lora.py and
+  test_torch_stable_lora.py.
 """
 
 import jax
@@ -59,7 +61,7 @@ def fields(site):
 
 @pytest.fixture(scope="module")
 def micro_sites():
-    port = sites.select_sites(sites.enumerate_unet_sites(
+    port = sites.select_sites(sites.enumerate_sites(
         meta_unet(micro_unet_config())), HEADLINE)
     jax_sites = jsites.select_sites(
         jsites.enumerate_unet_sites(j_micro_config()), HEADLINE)
@@ -71,7 +73,7 @@ def micro_sites():
 def test_sites_match_jax_in_order(geometry, targets):
     port_cfg, jax_cfg = CONFIGS[geometry]
     port = sites.select_sites(
-        sites.enumerate_unet_sites(meta_unet(port_cfg)), TARGETS[targets])
+        sites.enumerate_sites(meta_unet(port_cfg)), TARGETS[targets])
     ref = jsites.select_sites(jsites.enumerate_unet_sites(jax_cfg),
                               TARGETS[targets])
     assert len(port) == len(ref) > 0
@@ -225,10 +227,11 @@ def test_prepare_branch_weight_dropout(micro_sites):
     g = torch.Generator().manual_seed(1)
     params = overlay.init_lora_params(port_sites, 4, g)
     rate = 0.25
-    a = overlay.prepare_branch(params, port_sites, 1.0, rate,
-                               torch.Generator().manual_seed(7))
-    b = overlay.prepare_branch(params, port_sites, 1.0, rate,
-                               torch.Generator().manual_seed(7))
+    a, b = (overlay.prepare_branch(
+        params, port_sites, 1.0,
+        overlay.dropout_masks(params, port_sites, rate,
+                              torch.Generator().manual_seed(7)), rate)
+        for _ in range(2))
     kept = dropped = 0
     for site in port_sites:
         down = params[site.torch_name]["down"]
@@ -283,14 +286,3 @@ def test_handler_init_save_and_reload(tmp_path):
             torch.testing.assert_close(again[name][leaf], entry[leaf],
                                        rtol=0, atol=0)
     assert handler.add_lora_to_model(False, "unet", unet) == (None, [], [])
-
-
-def test_unported_lora_files_and_models_raise(tmp_path):
-    unet = UNet3DConditionModel(micro_unet_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LoraHandler().add_lora_to_model(True, "text_encoder", unet)
-    path = tmp_path / "x_unet.safetensors"
-    path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LoraHandler().add_lora_to_model(True, "unet", unet,
-                                        lora_path=str(path))

@@ -91,11 +91,6 @@ def _flat(tree, prefix=()):
     return out
 
 
-def test_8bit_adam_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poptim.get_optimizer(1e-3, use_8bit_adam=True)
-
-
 @pytest.mark.parametrize("name", SCHEDULES)
 def test_lr_schedules_match_optax(name):
     warmup, total = 10, 100

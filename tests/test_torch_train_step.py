@@ -32,7 +32,7 @@ from text_to_video_finetuning_tpu.models import unet3d as junet
 from text_to_video_finetuning_tpu.schedulers import ddpm as jddpm
 from text_to_video_finetuning_tpu.training import train_step as jstep
 from text_to_video_finetuning_tpu_torch.lora.sites import (
-    enumerate_unet_sites, select_sites)
+    enumerate_sites, select_sites)
 from text_to_video_finetuning_tpu_torch.models import clip_text as pclip
 from text_to_video_finetuning_tpu_torch.models import unet3d as punet
 from text_to_video_finetuning_tpu_torch.schedulers import ddpm as pddpm
@@ -115,7 +115,7 @@ def make_setup(seed: int = 0, use_offset_noise: bool = False):
     pc.load_state_dict(from_jax_params(c_flat, "text_encoder"), strict=True)
     for m in (pu, pc):
         m.requires_grad_(False)
-    psites = select_sites(enumerate_unet_sites(pu), HEADLINE)
+    psites = select_sites(enumerate_sites(pu), HEADLINE)
     pcfg = pstep.TrainStepConfig(
         unet=pu, text_encoder=pc,
         scheduler=pddpm.DDPMScheduler(pddpm.SchedulerConfig()),
@@ -291,34 +291,49 @@ def test_build_steps_the_headline_policy_with_fused_groupnorm():
 
 
 @pytest.mark.parametrize("option", [
-    dict(text_lora=True), dict(split=True),
-    dict(lora_version="stable_lora"), dict(use_8bit_adam=True)],
-    ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))))
-def test_build_refuses_options_not_ported_yet(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        micro_build(**option)
-
-
-@pytest.mark.parametrize("option", [
-    dict(skip_nonfinite=3), dict(raw_latents=True)],
+    dict(skip_nonfinite=3), dict(raw_latents=True), dict(text_lora=True),
+    dict(split=True), dict(lora_version="stable_lora"),
+    dict(use_8bit_adam=True)],
     ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))))
 def test_build_takes_the_engine_options(option):
     """`raw_latents` feeds pixel frames (B, F, 3, 8*lh, 8*lw) that the step
-    encodes with the VAE; `skip_nonfinite` puts AdamW behind the guard.
-    Both train two finite steps that move the LoRA."""
+    encodes with the VAE; `skip_nonfinite` puts AdamW behind the guard;
+    `text_lora` adds a LoRA on the CLIP's CLIPEncoderLayer (pass 1 is then
+    the frame-1 pass); `split` runs the passes one after the other;
+    stable_lora takes loralib's layout at rank 32 on its preset targets;
+    `use_8bit_adam` keeps int8 moments.  Each trains two finite steps that
+    move the LoRA (and the text LoRA)."""
     from text_to_video_finetuning_tpu_torch.models.vae import tiny_vae_config
+    from text_to_video_finetuning_tpu_torch.ops.quantized_adam import (
+        AdamW8bit)
     step, state, batch, cfg = micro_build(vae_config=tiny_vae_config(),
                                           **option)
     if option.get("raw_latents"):
         assert tuple(batch["pixel_values"].shape) == (1, FRAMES, 3, 64, 64)
         assert not cfg.cache_latents and cfg.vae is not None
-    else:
+    elif option.get("skip_nonfinite"):
         assert "notfinite_drops" in step(state, batch)[1]
+    assert ("text_lora" in state.trainable) == bool(option.get("text_lora"))
+    assert len(cfg.text_sites) == (6 * 2 if option.get("text_lora") else 0)
+    if option.get("lora_version"):
+        assert cfg.lora_version == "stable_lora"
+        assert {c for s in cfg.unet_sites for c in s.classes} >= {
+            "Transformer2DModel", "ResnetBlock2D"}
+        conv = next(s for s in cfg.unet_sites if s.kind == "conv2d")
+        down = state.trainable["unet_lora"][conv.torch_name]["down"]
+        assert down.shape == (min(32, conv.in_features, conv.out_features)
+                              * 3, conv.in_features * 3)
+    assert isinstance(state.opt_state, AdamW8bit) == bool(
+        option.get("use_8bit_adam"))
     for _ in range(2):
         state, metrics = step(state, batch)
         assert np.isfinite(float(metrics["loss"]))
-    ups = [e["up"] for e in state.trainable["unet_lora"].values()]
-    assert any(bool((u != 0).any()) for u in ups)
+        if option.get("text_lora"):
+            assert float(metrics["loss1"]) != float(metrics["loss0"])
+    for group in ("unet_lora", "text_lora"):
+        if group in state.trainable:
+            ups = [e["up"] for e in state.trainable[group].values()]
+            assert any(bool((u != 0).any()) for u in ups), group
 
 
 def test_ema_follows_the_jax_rule():

@@ -32,7 +32,7 @@ from text_to_video_finetuning_tpu.training import train_step as jstep
 from text_to_video_finetuning_tpu.training.trainable import (
     select_trainable as jselect)
 from text_to_video_finetuning_tpu_torch.lora.sites import (
-    enumerate_unet_sites, select_sites)
+    enumerate_sites, select_sites)
 from text_to_video_finetuning_tpu_torch.models import clip_text as pclip
 from text_to_video_finetuning_tpu_torch.models import unet3d as punet
 from text_to_video_finetuning_tpu_torch.models import vae as pvae
@@ -148,7 +148,7 @@ def make_setup(mode: str, dtype: str = "fp32", seed: int = 0):
     psites = ()
     if mode == "lora":
         select_trainable(pu, None)
-        psites = tuple(select_sites(enumerate_unet_sites(pu), HEADLINE))
+        psites = tuple(select_sites(enumerate_sites(pu), HEADLINE))
         ptrainable = {"unet_lora": {
             name: {leaf: t.requires_grad_() for leaf, t in entry.items()}
             for name, entry in lora_from_jax(lora_flat).items()}}

@@ -10,7 +10,11 @@ the reference's registration, `up_blocks` before `mid_block`
 transformer block (models/attention.py).
 
 Only the branch layers of models/lora_layers.py are sites: the UNet's
-Linear, Conv2d and Conv3d layers.
+Linear, Conv2d and Conv3d layers, and the CLIP text encoder's projections
+and its two embeddings (kind `embedding`, which only stable_lora searches).
+The CLIP's order is transformers': the two embeddings, then per layer
+k, v, q, out_proj, fc1, fc2 (JAX `enumerate_text_encoder_sites`,
+lora/sites.py:251-277).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import List, Sequence, Tuple
 
 from torch import nn
 
-from ..models.lora_layers import LoraConv2d, LoraConv3d, LoraLinear
+from ..models.lora_layers import (LORA_LAYERS, LoraConv2d,
+                                  LoraEmbedding, LoraLinear)
 
 # torch class-name aliases: newer diffusers renamed CrossAttention->Attention
 _CLASS_ALIASES = {"Attention": "CrossAttention"}
@@ -30,7 +35,7 @@ _CONTAINERS = (nn.ModuleList, nn.Sequential, nn.ModuleDict)
 @dataclasses.dataclass(frozen=True)
 class LoraSite:
     torch_name: str          # dotted module name, e.g. ...attn1.to_q
-    kind: str                # linear | conv2d | conv3d
+    kind: str                # linear | conv2d | conv3d | embedding
     classes: Tuple[str, ...]  # ancestor class names root->leaf, no containers
     in_features: int
     out_features: int
@@ -40,18 +45,22 @@ class LoraSite:
 def _describe(module: nn.Module) -> Tuple[str, int, int, int]:
     if isinstance(module, LoraLinear):
         return "linear", module.in_features, module.out_features, 1
+    if isinstance(module, LoraEmbedding):
+        return ("embedding", module.num_embeddings, module.embedding_dim,
+                1)
     kind = "conv2d" if isinstance(module, LoraConv2d) else "conv3d"
     return (kind, module.in_channels, module.out_channels,
             module.kernel_size[0])
 
 
-def enumerate_unet_sites(model: nn.Module) -> List[LoraSite]:
-    """Every LoRA-capable layer of `model`, in `named_modules()` order.
-    Works on a model built on the `meta` device."""
+def enumerate_sites(model: nn.Module) -> List[LoraSite]:
+    """Every LoRA-capable layer of `model` (the UNet or the CLIP text
+    encoder), in `named_modules()` order.  Works on a model built on the
+    `meta` device."""
     modules = dict(model.named_modules())
     sites = []
     for name, module in model.named_modules():
-        if not isinstance(module, (LoraLinear, LoraConv2d, LoraConv3d)):
+        if not isinstance(module, LORA_LAYERS):
             continue
         parts = name.split(".")
         ancestors = (modules[".".join(parts[:i])] for i in range(len(parts)))

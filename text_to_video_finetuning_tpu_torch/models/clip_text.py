@@ -4,7 +4,11 @@ The transformers `CLIPTextModel` the reference calls as
 `text_encoder(token_ids)[0]`: a causal-masked transformer over 77 BPE tokens
 returning the final-LayerNormed last hidden state.  ModelScope's encoder is
 the OpenCLIP-H-derived 1024-wide model (gelu); SD1.x uses quick_gelu.
-State-dict keys are the transformers names (text_model.*).
+State-dict keys are the transformers names (text_model.*), and the module
+classes and their registration order are transformers' too, since LoRA
+targets select by class name and the cloneofsimo `.pt` list follows the
+module order.  The six projections of a layer and the two embeddings carry
+a LoRA branch (models/lora_layers.py).
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .lora_layers import LoraEmbedding, LoraLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +60,12 @@ class CLIPAttention(nn.Module):
         d = config.hidden_size
         self.heads = config.num_attention_heads
         self.head_dim = d // self.heads
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        # transformers' registration order, which the LoRA site order and
+        # the cloneofsimo `.pt` list follow (JAX lora/sites.py:268)
+        self.k_proj = LoraLinear(d, d)
+        self.v_proj = LoraLinear(d, d)
+        self.q_proj = LoraLinear(d, d)
+        self.out_proj = LoraLinear(d, d)
 
     def forward(self, hidden_states: torch.Tensor,
                 causal_mask: torch.Tensor) -> torch.Tensor:
@@ -76,8 +84,8 @@ class CLIPMLP(nn.Module):
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
         self.act = config.hidden_act
-        self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size)
-        self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size)
+        self.fc1 = LoraLinear(config.hidden_size, config.intermediate_size)
+        self.fc2 = LoraLinear(config.intermediate_size, config.hidden_size)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         return self.fc2(_act(self.act, self.fc1(hidden_states)))
@@ -99,12 +107,12 @@ class CLIPEncoderLayer(nn.Module):
         return hidden_states + self.mlp(self.layer_norm2(hidden_states))
 
 
-class CLIPEmbeddings(nn.Module):
+class CLIPTextEmbeddings(nn.Module):
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
-        self.token_embedding = nn.Embedding(config.vocab_size,
-                                            config.hidden_size)
-        self.position_embedding = nn.Embedding(
+        self.token_embedding = LoraEmbedding(config.vocab_size,
+                                             config.hidden_size)
+        self.position_embedding = LoraEmbedding(
             config.max_position_embeddings, config.hidden_size)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -123,7 +131,7 @@ class CLIPEncoder(nn.Module):
 class CLIPTextTransformer(nn.Module):
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
-        self.embeddings = CLIPEmbeddings(config)
+        self.embeddings = CLIPTextEmbeddings(config)
         self.encoder = CLIPEncoder(config)
         self.final_layer_norm = nn.LayerNorm(config.hidden_size,
                                              eps=config.layer_norm_eps)

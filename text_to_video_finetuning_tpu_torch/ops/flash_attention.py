@@ -72,6 +72,8 @@ dkv_sm90_launch_count = 0
 dkv_wmma_launch_count = 0
 dq_sm90_launch_count = 0
 dq_wmma_launch_count = 0
+# the same launches by batch: {("fwd" | "dkv" | "dq", q.shape[0]): n}
+batch_launch_counts: Dict[Tuple[str, int], int] = {}
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 _lib_lock = threading.Lock()
@@ -296,13 +298,15 @@ def _entry(kernel: str, route: str):
     return getattr(lib, fn), getattr(lib, errstr)
 
 
-def _count(kernel: str, route: str):
-    """One launch of K1 (`fwd`), K2 (`dkv`) or K3 (`dq`) on `route`: its
-    total and its route's counter."""
+def _count(kernel: str, route: str, batch: int):
+    """One launch of K1 (`fwd`), K2 (`dkv`) or K3 (`dq`) on `route` at
+    `batch`: its total, its route's counter and its batch's."""
     counts = globals()
     counts["launch_count" if kernel == "fwd"
            else f"{kernel}_launch_count"] += 1
     counts[f"{kernel}_{route}_launch_count"] += 1
+    by_batch = counts["batch_launch_counts"]
+    by_batch[kernel, batch] = by_batch.get((kernel, batch), 0) + 1
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -329,7 +333,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash attention forward ({route}) launch "
                            "failed: " + errstr(err).decode())
-    _count("fwd", route)
+    _count("fwd", route, b)
     return o, lse
 
 
@@ -363,7 +367,7 @@ def _launch_bwd(kernel: str, route: str, q, k, v, do, lse, delta,
     if err != 0:
         raise RuntimeError(f"flash attention {kernel} ({route}) launch "
                            "failed: " + errstr(err).decode())
-    _count(kernel, route)
+    _count(kernel, route, b)
 
 
 def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,

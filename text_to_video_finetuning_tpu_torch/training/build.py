@@ -5,7 +5,10 @@
 UNet and the 1024-wide, 23-layer CLIP, frozen, in bf16; cached latents of
 shape (1, 4, 16, 32, 32) (256x256, 16 frames); a cloneofsimo LoRA of rank 16
 in branch form on Transformer2DModel, TransformerTemporalModel and
-ResnetBlock2D, fp32; DDPM epsilon targets and the two-pass loss; AdamW at a
+ResnetBlock2D, fp32 (`lora_version="stable_lora"`: loralib's, rank 32 on
+Transformer2DModel and ResnetBlock2D, as stable_lora_config.yaml;
+`text_lora`: a LoRA on the CLIP's CLIPEncoderLayer at the UNet's rank, the
+hybrid config, whose pass 1 is the frame-1 pass); DDPM epsilon targets and the two-pass loss; AdamW at a
 constant 5e-6 with global-norm clipping at 1.0; per-unit gradient
 checkpointing under `remat_policy` (a models/remat.py policy name, with an
 optional `+skiplow` / `+skiplowN` suffix); `fused_groupnorm` runs the
@@ -17,9 +20,10 @@ latents are N(0, 1) draws, so activations are not degenerate.
 `raw_latents=True` adds the SD VAE (frozen, in `dtype`) and feeds pixel
 frames (B, F, 3, 8*lh, 8*lw), uniform in [-1, 1], that the step encodes
 (`train_step.py::tensor_to_vae_latent`); `skip_nonfinite=N` puts the
-optimizer behind the non-finite guard (`optim.py::wrap_optimizer`).
-Options of the JAX `build()` that are not ported yet raise
-`NotImplementedError` naming their ROADMAP item.
+optimizer behind the non-finite guard (`optim.py::wrap_optimizer`);
+`use_8bit_adam` takes 8-bit AdamW; `split` the split step
+(`train_step.py::make_split_train_step`).  These follow the JAX
+`benchmarks/step_bench.py::build` (:58-78, :129-130).
 """
 
 from __future__ import annotations
@@ -38,15 +42,12 @@ from ..models.vae import VAE_SD_CONFIG, AutoencoderKL, VAEConfig
 from ..schedulers.ddpm import DDPMScheduler, SchedulerConfig
 from .optim import get_lr_schedule, get_optimizer, wrap_optimizer
 from .train_step import (TrainState, TrainStepConfig, ema_init,
-                         make_train_step)
+                         make_split_train_step, make_train_step)
 
 UNET_LORA_TARGETS = ("Transformer2DModel", "TransformerTemporalModel",
                      "ResnetBlock2D")
-
-
-def _refuse(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                              f"item {item}")
+# stable_lora's shipped preset (configs/v2/stable_lora_config.yaml)
+STABLE_UNET_LORA_TARGETS = ("Transformer2DModel", "ResnetBlock2D")
 
 
 def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
@@ -64,12 +65,6 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
           ) -> Tuple[object, TrainState, dict, TrainStepConfig]:
     """-> (train_step, state, batch, step config); `train_step(state,
     batch)` returns (state, metrics)."""
-    if text_lora:
-        _refuse("text-encoder LoRA (the hybrid config)", 1)
-    if split:
-        _refuse("the split-compile train step", 1)
-    if lora_version != "cloneofsimo":
-        _refuse(f"LoRA version {lora_version!r} (stable_lora)", 1)
     device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
@@ -85,11 +80,20 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
     unet.set_gradient_checkpointing(grad_ckpt, remat_policy)
     unet.set_attention_backend(backend)
 
-    handler = LoraHandler(use_unet_lora=True,
-                          unet_replace_modules=UNET_LORA_TARGETS)
+    stable = lora_version == "stable_lora"
+    rank = 32 if stable else 16
+    handler = LoraHandler(version=lora_version, use_unet_lora=True,
+                          use_text_lora=text_lora,
+                          unet_replace_modules=(STABLE_UNET_LORA_TARGETS
+                                                if stable
+                                                else UNET_LORA_TARGETS))
     unet_lora, unet_sites, _ = handler.add_lora_to_model(
-        True, "unet", unet, r=16, generator=g)
+        True, "unet", unet, r=rank, generator=g)
+    text_lora_params, text_sites, _ = handler.add_lora_to_model(
+        text_lora, "text_encoder", clip, r=rank, generator=g)
     trainable = {"unet_lora": unet_lora}
+    if text_lora_params is not None:
+        trainable["text_lora"] = text_lora_params
     optimizer = wrap_optimizer(
         get_optimizer(get_lr_schedule("constant", 5e-6, 0, 100),
                       use_8bit_adam=use_8bit_adam),
@@ -99,7 +103,8 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
         scheduler=DDPMScheduler(SchedulerConfig()),
         vae=vae, cache_latents=not raw_latents,
         scaling_factor=vae_config.scaling_factor,
-        unet_sites=tuple(unet_sites), use_offset_noise=False,
+        unet_sites=tuple(unet_sites), text_sites=tuple(text_sites),
+        lora_version=lora_version, use_offset_noise=False,
         two_pass=two_pass,
         ema_decay=0.9999 if use_ema else 0.0, ema_every=1)
     state = TrainState(step=0, trainable=trainable,
@@ -117,4 +122,5 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
         "prompt_ids": torch.zeros((batch, 77), dtype=torch.long,
                                   device=device),
     }
-    return make_train_step(cfg, optimizer), state, batch_tree, cfg
+    make = make_split_train_step if split else make_train_step
+    return make(cfg, optimizer), state, batch_tree, cfg

@@ -15,10 +15,20 @@ ones stay fp32 behind a cast at use (`training/trainable.py::cast_at_use`),
 as the JAX engine keeps its trainable leaves fp32 and casts the frozen
 tree (engine.py:441-451).
 
-Saves: `checkpoint-<step>/` holds the diffusers pipeline (cloneofsimo LoRA
-collapsed in, the `.pt` sidecar under `lora/`) and `train_state/`
+LoRA: either flavour (`lora_version` cloneofsimo or stable_lora) on the
+UNet (`use_unet_lora`) and on the CLIP (`use_text_lora`, the hybrid
+config whose pass 1 is the frame-1 pass on trainable text), optionally
+resumed from `lora_path`; `split_two_pass` runs the step's two passes one
+after the other (`train_step.py::make_split_train_step`) and
+`use_8bit_adam` takes 8-bit AdamW.
+
+Saves: `checkpoint-<step>/` holds the diffusers pipeline and `train_state/`
 (utils/train_state_io.py), written on background threads one at a time;
-the run's end writes the pipeline to the run directory.  SIGTERM finishes
+the run's end writes the pipeline to the run directory.  The LoRA files go
+under `lora/` through the handler: cloneofsimo's `{step}_unet.pt` and
+`{step}_text_encoder.pt`, with both LoRAs collapsed into the saved
+pipeline; stable_lora's `full_weights/` and webui files, the pipeline
+saved without them (JAX engine.py:189-231).  SIGTERM finishes
 the step in flight, writes a checkpoint and returns.
 
 `text_encoder_gradient_checkpointing` changes memory only; the port's CLIP
@@ -27,7 +37,7 @@ runs without checkpointing.
 What the JAX engine does across a mesh (multi-host init, ahead-of-time
 compile barriers, the global batch assembly, sharding) has no counterpart
 on one device: a `mesh_*` above 1 raises.  Options not ported yet raise
-`NotImplementedError` naming their ROADMAP item, before the first step.
+`NotImplementedError` naming their ROADMAP item, before anything loads.
 """
 
 from __future__ import annotations
@@ -41,7 +51,6 @@ import shutil
 import signal
 import threading
 import time
-import warnings
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -53,7 +62,7 @@ from ..data import (CachedDataset, ConcatDataset, DataLoader,
 from ..data import native as dnative
 from ..data.video import export_to_video
 from ..lora.handler import LoraHandler
-from ..lora.overlay import attach_lora, collapse_lora, prepare_branch
+from ..lora.overlay import collapse_lora
 from ..pipelines.text_to_video import TextToVideoSDPipeline
 from ..schedulers.ddpm import DDPMScheduler
 from ..utils import checkpoint as ckpt
@@ -62,8 +71,9 @@ from ..utils.background import OneInFlight
 from ..utils.profiling import ProfilerTrace, StepTimer, unet3d_flops_per_step
 from ..utils.tokenizer import CLIPTokenizer
 from .optim import get_lr_schedule, get_optimizer, leaves, wrap_optimizer
-from .train_step import (TrainState, TrainStepConfig, ema_init,
-                         make_train_step)
+from .train_step import (TrainState, TrainStepConfig, attach_branches,
+                         ema_init, make_split_train_step, make_train_step,
+                         text_is_trainable)
 from .trainable import cast_at_use, plain_state_dict, select_trainable
 
 logger = logging.getLogger("t2v_torch")
@@ -80,12 +90,6 @@ def _refuse(what: str, item: int):
 def check_supported(cfg: TrainConfig):
     """Refuse, before anything is loaded, the options the port does not
     run yet, each naming its ROADMAP Queue 1 item."""
-    if cfg.use_text_lora:
-        _refuse("text-encoder LoRA (use_text_lora)", 1)
-    if cfg.use_unet_lora and cfg.lora_version != "cloneofsimo":
-        _refuse(f"LoRA version {cfg.lora_version!r} (stable_lora)", 1)
-    if cfg.use_8bit_adam:
-        _refuse("8-bit Adam (use_8bit_adam)", 1)
     if (cfg.validation_data or {}).get("compute_clip_score"):
         _refuse("CLIP-score validation (validation_data.compute_clip_score)",
                 6)
@@ -205,28 +209,37 @@ def save_pipe(cfg: TrainConfig, output_dir: str, global_step: int,
               lora_state: Dict, lora_manager: LoraHandler,
               is_checkpoint: bool):
     """reference save_pipe (train.py:395-449): a full diffusers pipeline
-    directory plus the LoRA sidecar; cloneofsimo saves the pipeline with
-    the LoRA collapsed into the base weights (reference
-    utils/lora_handler.py:303).  `params` maps unet / text / vae to state
-    dicts."""
+    directory plus the LoRA files; cloneofsimo saves the pipeline with both
+    LoRAs collapsed into the base weights (reference
+    utils/lora_handler.py:303, JAX engine.py:211-223).  `params` maps unet /
+    text / vae to state dicts."""
     if is_checkpoint:
         save_path = os.path.join(output_dir, f"checkpoint-{global_step}")
         os.makedirs(save_path, exist_ok=True)
     else:
         save_path = output_dir
-    unet_params = params["unet"]
-    if lora_manager.use_unet_lora and lora_state.get("unet_lora") is not None:
+    unet_params, text_params = params["unet"], params["text"]
+    if lora_manager.use_lora:
         lora_manager.save_lora_weights(
             save_path, global_step, unet_lora=lora_state["unet_lora"],
-            unet_sites=lora_state["unet_sites"])
-        unet_params = collapse_lora(unet_params, lora_state["unet_lora"],
-                                    lora_state["unet_sites"])
+            unet_sites=lora_state["unet_sites"],
+            text_lora=lora_state["text_lora"],
+            text_sites=lora_state["text_sites"])
+        if lora_manager.is_cloneofsimo_lora():
+            if lora_state["unet_lora"] is not None:
+                unet_params = collapse_lora(unet_params,
+                                            lora_state["unet_lora"],
+                                            lora_state["unet_sites"])
+            if lora_state["text_lora"] is not None:
+                text_params = collapse_lora(text_params,
+                                            lora_state["text_lora"],
+                                            lora_state["text_sites"])
     if cfg.save_pretrained_model:
         ckpt.save_pipeline(
             save_path,
             unet=(models["unet_config"], unet_params),
             vae=(models["vae_config"], params["vae"]),
-            text_encoder=(models["clip_config"], params["text"]),
+            text_encoder=(models["clip_config"], text_params),
             scheduler_config=models["scheduler_config"],
             tokenizer_dir=os.path.join(pretrained_model_path, "tokenizer"))
     logger.info(f"Saved model at {save_path} on step {global_step}")
@@ -282,16 +295,24 @@ class RunRecord:
     * `saves`: each save's (what, seconds): a pipeline write (on its
       background thread) or a train-state snapshot (the part the loop
       waits for);
-    * `restored`: the train state just after a resume, and `final`: the
-      train state when the loop ends, as host snapshots
-      (`utils/train_state_io.py::snapshot`).
+    * `initial`: the train state the loop starts from (after a resume,
+      the restored one), and `final`: the train state when the loop ends,
+      as host snapshots (`utils/train_state_io.py::snapshot`);
+    * `peaks`, on the card: the run cut into spans that follow one another,
+      each span's (name, peak bytes allocated): "set-up" (models, data,
+      optimizer, resume), "step n", "after step n" (a checkpoint's
+      snapshot, sampling, the joins at the end; a background pipeline
+      write runs on into the next steps' spans) and "final save".  The
+      run's peak is their largest; the run resets the device's peak
+      statistics at its start and at each span's end.
 
     Without a record the run snapshots and reads back nothing more."""
     steps: List[Tuple[float, float]] = dataclasses.field(
         default_factory=list)
     saves: List[Tuple[str, float]] = dataclasses.field(default_factory=list)
-    restored: Optional[Dict[str, Any]] = None
+    initial: Optional[Dict[str, Any]] = None
     final: Optional[Dict[str, Any]] = None
+    peaks: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
 
     def timed(self, what: str, fn, *args, **kwargs):
         """`fn(*args, **kwargs)`, its time appended to `saves`."""
@@ -299,6 +320,15 @@ class RunRecord:
         out = fn(*args, **kwargs)
         self.saves.append((what, time.perf_counter() - t0))
         return out
+
+    def mark(self, span: Optional[str], device: torch.device):
+        """On the card, end `span` (None: start the first one): append its
+        peak to `peaks` and reset the device's peak statistics."""
+        if device.type != "cuda":
+            return
+        if span is not None:
+            self.peaks.append((span, torch.cuda.max_memory_allocated(device)))
+        torch.cuda.reset_peak_memory_stats(device)
 
 
 def main(device: Union[str, torch.device] = "cuda",
@@ -309,6 +339,12 @@ def main(device: Union[str, torch.device] = "cuda",
     device = resolve_device(device)
     keep = record is not None
     record = record if keep else RunRecord()
+
+    def mark(span: Optional[str]):
+        if keep:
+            record.mark(span, device)
+
+    mark(None)
     cfg = (kwargs.pop("config") if isinstance(kwargs.get("config"),
                                               TrainConfig)
            else train_config_from_dict(kwargs))
@@ -340,24 +376,28 @@ def main(device: Union[str, torch.device] = "cuda",
         learning_rate = (learning_rate * cfg.gradient_accumulation_steps
                          * cfg.train_batch_size)
 
-    # LoRA (cloneofsimo on the UNet)
-    lora_manager = LoraHandler(use_unet_lora=cfg.use_unet_lora,
-                               unet_replace_modules=cfg.unet_lora_modules)
-    if cfg.use_unet_lora and (cfg.save_lora_for_webui
-                              or cfg.only_lora_for_webui):
-        warnings.warn("save_for_webui requires the stable_lora flavor; "
-                      "cloneofsimo LoRA cannot be exported to webui format.")
+    # LoRA (JAX engine.py:413-431); the step generator draws the inits
+    lora_manager = LoraHandler(
+        version=cfg.lora_version, use_unet_lora=cfg.use_unet_lora,
+        use_text_lora=cfg.use_text_lora,
+        save_for_webui=cfg.save_lora_for_webui,
+        only_for_webui=cfg.only_lora_for_webui,
+        unet_replace_modules=cfg.unet_lora_modules,
+        text_encoder_replace_modules=cfg.text_encoder_lora_modules)
     generator = torch.Generator(device).manual_seed(seed)
     unet_lora, unet_sites, unet_negation = lora_manager.add_lora_to_model(
         cfg.use_unet_lora, "unet", unet, lora_path=cfg.lora_path,
         r=cfg.lora_rank, generator=generator)
+    text_lora, text_sites, text_negation = lora_manager.add_lora_to_model(
+        cfg.use_text_lora, "text_encoder", text_encoder,
+        lora_path=cfg.lora_path, r=cfg.lora_rank, generator=generator)
 
     # trainable selection (reference handle_trainable_modules + negation)
     unet_trainable = select_trainable(unet, cfg.trainable_modules,
                                       unet_negation)
     text_trainable = select_trainable(
         text_encoder, cfg.trainable_text_modules if cfg.train_text_encoder
-        else None)
+        else None, text_negation)
     vae.requires_grad_(False)
     if compute_dtype == torch.bfloat16:
         # reference train.py:680-686: frozen models in half precision,
@@ -374,12 +414,11 @@ def main(device: Union[str, torch.device] = "cuda",
         trainable["text"] = text_trainable
     if unet_lora is not None:
         trainable["unet_lora"] = unet_lora
+    if text_lora is not None:
+        trainable["text_lora"] = text_lora
     if not trainable:
         raise ValueError(
             "nothing to train: set trainable_modules or enable LoRA")
-    second_pass_runs = cfg.two_pass_loss or "text" in trainable
-    if cfg.split_two_pass and second_pass_runs:
-        _refuse("split_two_pass (the split-compile train step)", 1)
     n_trainable = sum(t.numel() for t in leaves(trainable))
     n_frozen = sum(p.numel() for m in (unet, text_encoder, vae)
                    for p in m.parameters() if not p.requires_grad)
@@ -396,6 +435,7 @@ def main(device: Union[str, torch.device] = "cuda",
         group_overrides["unet_lora"] = dict(cfg.extra_unet_params)
     if cfg.extra_text_encoder_params:
         group_overrides["text"] = dict(cfg.extra_text_encoder_params)
+        group_overrides["text_lora"] = dict(cfg.extra_text_encoder_params)
     optimizer = wrap_optimizer(
         get_optimizer(schedule, cfg.adam_beta1, cfg.adam_beta2,
                       cfg.adam_weight_decay, cfg.adam_epsilon,
@@ -436,14 +476,24 @@ def main(device: Union[str, torch.device] = "cuda",
         unet=unet, text_encoder=text_encoder, scheduler=noise_scheduler,
         vae=vae, cache_latents=cfg.cache_latents,
         scaling_factor=vae.config.scaling_factor,
-        unet_sites=tuple(unet_sites),
+        unet_sites=tuple(unet_sites), text_sites=tuple(text_sites),
+        lora_version=cfg.lora_version,
         lora_unet_dropout=cfg.lora_unet_dropout,
+        lora_text_dropout=cfg.lora_text_dropout,
         use_offset_noise=cfg.use_offset_noise and not cfg.rescale_schedule,
         offset_noise_strength=cfg.offset_noise_strength,
         eval_train=bool(cfg.eval_train), two_pass=cfg.two_pass_loss,
         ema_decay=(cfg.ema_decay if cfg.use_ema else 0.0),
         ema_every=cfg.gradient_accumulation_steps)
-    train_step = make_train_step(step_cfg, optimizer)
+    # split_two_pass: the two passes one after the other, only where a
+    # second pass runs (JAX engine.py:613-622)
+    if cfg.split_two_pass and (cfg.two_pass_loss
+                               or text_is_trainable(trainable)):
+        logger.info("split_two_pass: the two loss passes run one after the "
+                    "other, each with its own backward")
+        train_step = make_split_train_step(step_cfg, optimizer)
+    else:
+        train_step = make_train_step(step_cfg, optimizer)
     state = TrainState(step=0, trainable=trainable,
                        opt_state=optimizer.init(trainable),
                        generator=generator,
@@ -454,10 +504,10 @@ def main(device: Union[str, torch.device] = "cuda",
             and train_state_io.has_train_state(cfg.resume_from_checkpoint)):
         state = train_state_io.load_train_state(cfg.resume_from_checkpoint,
                                                 state)
-        if keep:
-            record.restored = train_state_io.snapshot(state)
         logger.info(f"Restored train state (step {state.step}) from "
                     f"{cfg.resume_from_checkpoint}")
+    if keep:
+        record.initial = train_state_io.snapshot(state)
 
     # epochs sized in micro-batches; len(loader) is an upper bound under
     # bucket batching, so the loop below runs until max_train_steps
@@ -484,9 +534,9 @@ def main(device: Union[str, torch.device] = "cuda",
     pending_losses = []   # buffered (global_step, device loss scalar)
 
     td = cfg.train_data or {}
-    if not cfg.two_pass_loss and "text" not in trainable:
+    if not cfg.two_pass_loss and not text_is_trainable(trainable):
         pass1 = "none"
-    elif "text" in trainable:
+    elif text_is_trainable(trainable):
         pass1 = "frame1"
     else:
         pass1 = "full"
@@ -511,12 +561,15 @@ def main(device: Union[str, torch.device] = "cuda",
         text_sd.update(host.get("text", {}))
         return ({"unet": unet_sd, "text": text_sd, "vae": vae.state_dict()},
                 {"unet_lora": host.get("unet_lora"),
-                 "unet_sites": unet_sites})
+                 "unet_sites": unet_sites,
+                 "text_lora": host.get("text_lora"),
+                 "text_sites": text_sites})
 
     def sample(prompt: str, batch) -> None:
         """A validation clip through the ported pipeline with the EMA (when
-        use_ema) or the live weights, the LoRA through the branch layers
-        (equal to its collapse), written as an mp4 beside the run."""
+        use_ema) or the live weights, both LoRAs through the branch layers
+        (equal to their collapse, JAX engine.py:855-866), written as an mp4
+        beside the run."""
         use_ema = cfg.use_ema and state.ema is not None
         backup = train_state_io.to_host(state.trainable) if use_ema else None
         vd = cfg.validation_data
@@ -525,9 +578,7 @@ def main(device: Union[str, torch.device] = "cuda",
                 for dst, val in zip(leaves(state.trainable),
                                     leaves(state.ema)):
                     dst.copy_(val)
-            lora = state.trainable.get("unet_lora")
-            if lora is not None:
-                attach_lora(unet, prepare_branch(lora, unet_sites))
+            attach_branches(step_cfg, state.trainable)
             unet.eval()
             text_encoder.eval()
             pipe = TextToVideoSDPipeline(
@@ -540,7 +591,7 @@ def main(device: Union[str, torch.device] = "cuda",
                           num_inference_steps=vd.get("num_inference_steps",
                                                      25),
                           guidance_scale=vd.get("guidance_scale", 9.0))
-            attach_lora(unet, None)
+            attach_branches(step_cfg, {})
             if use_ema:
                 for dst, val in zip(leaves(state.trainable),
                                     leaves(backup)):
@@ -603,6 +654,7 @@ def main(device: Union[str, torch.device] = "cuda",
                 # the profiler window counts steps since this run started
                 if cfg.profile_steps and run_steps == 1:
                     profiler.start()
+                mark(f"after step {run_steps}" if run_steps else "set-up")
                 t0 = time.perf_counter()
                 state, metrics = train_step(state, device_batch)
                 # window-mean train_loss (reference train.py:855-890), kept
@@ -617,6 +669,7 @@ def main(device: Union[str, torch.device] = "cuda",
                 if keep:
                     record.steps.append((time.perf_counter() - t0,
                                          float(metrics["loss"])))
+                mark(f"step {run_steps}")
 
                 # global_step counts optimizer updates, one per
                 # gradient_accumulation_steps micro-batches
@@ -703,6 +756,7 @@ def main(device: Union[str, torch.device] = "cuda",
         raise shutdown_exc
     if keep:
         record.final = train_state_io.snapshot(state)
+    mark(f"after step {run_steps}" if run_steps else "set-up")
     if not stop_event.is_set():
         # end-of-training export; on preemption the checkpoint above is
         # already durable
@@ -710,6 +764,7 @@ def main(device: Union[str, torch.device] = "cuda",
         record.timed("pipeline", save_pipe, cfg, output_dir, global_step,
                      cfg.pretrained_model_path, models, params_now,
                      lora_now, lora_manager, is_checkpoint=False)
+    mark("final save")
     if writer is not None:
         for gs, tl in pending_losses:
             writer.add_scalar("train_loss", float(tl), gs)

@@ -9,7 +9,9 @@ text_to_video_finetuning_tpu/training/optim.py).
   `clip_by_global_norm` rule: the gradients are scaled by max_norm / g_norm
   only when g_norm >= max_norm (`torch.nn.utils.clip_grad_norm_` adds 1e-6
   to the norm and so is not the same rule).  Step n (from 0) uses the lr of
-  schedule(n), as optax's counter does.  8-bit Adam is not ported yet.
+  schedule(n), as optax's counter does.  `use_8bit_adam` swaps AdamW for
+  `ops/quantized_adam.py::AdamW8bit` (int8 moments) behind the same clip
+  and groups; like the JAX `adamw_8bit`, its step n uses schedule(n + 1).
 * `wrap_optimizer`: gradient accumulation with `optax.MultiSteps`
   semantics (a running mean of the micro-gradients, one clipped AdamW
   update per window) and the `optax.apply_if_finite` guard outside it, in
@@ -27,6 +29,8 @@ from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
                     Union)
 
 import torch
+
+from ..ops.quantized_adam import AdamW8bit
 
 Schedule = Callable[[int], float]
 
@@ -110,16 +114,17 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class ClippedAdamW:
-    """AdamW over named parameter groups behind optax-rule global-norm
-    clipping.  `init(trainable)` builds the torch optimizer over
-    {group: {name: tensor}}; `step(opt, step)` clips, sets each group's lr
-    for this step and updates."""
+    """AdamW (or, with `use_8bit`, AdamW8bit) over named parameter groups
+    behind optax-rule global-norm clipping.  `init(trainable)` builds the
+    torch optimizer over {group: {name: tensor}}; `step(opt, step)` clips,
+    sets each group's lr for this step and updates."""
 
     def __init__(self, schedule: Schedule, betas=(0.9, 0.999),
                  weight_decay: float = 1e-2, eps: float = 1e-8,
                  max_grad_norm: float = 1.0,
                  group_overrides: Optional[Mapping[str, Dict]] = None,
-                 base_lr: Optional[float] = None):
+                 base_lr: Optional[float] = None, use_8bit: bool = False):
+        self.use_8bit = use_8bit
         self.schedule = schedule
         self.defaults = dict(betas=tuple(betas), weight_decay=weight_decay,
                              eps=eps)
@@ -139,7 +144,7 @@ class ClippedAdamW:
         return lambda count: ov_lr
 
     def init(self, trainable: Mapping[str, Mapping[str, torch.Tensor]]
-             ) -> torch.optim.AdamW:
+             ) -> torch.optim.Optimizer:
         groups = []
         for name, tree in trainable.items():
             params = list(leaves(tree))
@@ -154,7 +159,8 @@ class ClippedAdamW:
                 weight_decay=ov.get("adam_weight_decay",
                                     self.defaults["weight_decay"]),
                 eps=ov.get("adam_epsilon", self.defaults["eps"])))
-        return torch.optim.AdamW(groups, lr=self.schedule(0))
+        cls = AdamW8bit if self.use_8bit else torch.optim.AdamW
+        return cls(groups, lr=self.schedule(0))
 
     @torch.no_grad()
     def step(self, opt: torch.optim.AdamW, step: int) -> torch.Tensor:
@@ -174,7 +180,7 @@ class ClippedAdamW:
                                     g / g_norm.to(g.dtype)
                                     * self.max_grad_norm))
         for group in opt.param_groups:
-            group["lr"] = group["schedule"](step)
+            group["lr"] = group["schedule"](step + int(self.use_8bit))
         opt.step()
         return g_norm
 
@@ -303,7 +309,8 @@ def adam_of(opt_state) -> torch.optim.AdamW:
 
 def opt_state_dict(opt_state) -> dict:
     """The optimizer state as tensors and ints, parameters in group order:
-    each one's AdamW `step`, `exp_avg` and `exp_avg_sq`, and the wrapper's
+    each one's AdamW `step`, `exp_avg` and `exp_avg_sq` (AdamW8bit: `step`
+    and the int8 values and fp32 scales of both moments), and the wrapper's
     counters and window.  The tensors are the live ones: copy them before
     the next step."""
     adam = adam_of(opt_state)
@@ -352,14 +359,12 @@ def get_optimizer(learning_rate_schedule: Union[Schedule, float],
                   adam_epsilon: float = 1e-8, max_grad_norm: float = 1.0,
                   use_8bit_adam: bool = False, group_overrides=None,
                   base_lr=None) -> ClippedAdamW:
-    """AdamW with global-norm clipping; `group_overrides` maps a top-level
-    trainable key ('unet', 'text', 'unet_lora') to {'learning_rate',
-    'adam_weight_decay', 'adam_beta1', 'adam_beta2', 'adam_epsilon'}."""
-    if use_8bit_adam:
-        raise NotImplementedError(
-            "8-bit Adam is not ported yet: ROADMAP Queue 1 item 1")
+    """AdamW (8-bit with `use_8bit_adam`) with global-norm clipping;
+    `group_overrides` maps a top-level trainable key ('unet', 'text',
+    'unet_lora', 'text_lora') to {'learning_rate', 'adam_weight_decay',
+    'adam_beta1', 'adam_beta2', 'adam_epsilon'}."""
     schedule = (learning_rate_schedule if callable(learning_rate_schedule)
                 else (lambda count, lr=float(learning_rate_schedule): lr))
     return ClippedAdamW(schedule, (adam_beta1, adam_beta2),
                         adam_weight_decay, adam_epsilon, max_grad_norm,
-                        group_overrides, base_lr)
+                        group_overrides, base_lr, use_8bit_adam)

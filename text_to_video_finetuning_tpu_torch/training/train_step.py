@@ -7,26 +7,31 @@ latents, or pixel frames encoded in the step (`cache_latents=False`:
 (optionally offset noise), per-video uniform timesteps, epsilon or v
 targets, and the two-pass loss.  Pass 0 runs the full clip
 with the text embeddings detached; pass 1 (more than one frame) runs frame 1
-only with trainable text when the text path trains, else the full clip a
-second time (`two_pass`; `two_pass=False` skips it and doubles pass 0).
-Both MSEs are taken in fp32.  LoRA runs in branch form through the model's
-branch layers (`lora/overlay.py::attach_lora`).
+only with trainable text when the text path trains (text tensors or a text
+LoRA: the hybrid config), else the full clip a second time (`two_pass`;
+`two_pass=False` skips it and doubles pass 0).  Both MSEs are taken in
+fp32.  LoRA of either flavour runs in branch form through the UNet's and the
+CLIP's branch layers (`lora/overlay.py::attach_lora`), stable_lora's
+embeddings included.
 
-`make_train_step` adds the backward, the optimizer (AdamW behind
-global-norm clipping, optionally inside the accumulation window and the
-non-finite guard, training/optim.py) and the EMA.  Unlike the JAX step, it
-updates the trainable tensors and the optimizer state in place.
+`make_train_step` adds the backward, the optimizer (AdamW or 8-bit AdamW
+behind global-norm clipping, optionally inside the accumulation window and
+the non-finite guard, training/optim.py) and the EMA;
+`make_split_train_step` runs the two passes one after the other, each with
+its own backward, on the same draws (`draw_step`).  Unlike the JAX steps,
+both update the trainable tensors and the optimizer state in place.
 
 A full finetune in bf16 keeps its trainable tensors in fp32 and casts them
 to bf16 where a layer uses them (`training/trainable.py::cast_at_use`), as
 Flax casts an fp32 parameter to the module's dtype; the frozen tensors are
 stored in bf16.
 
-Random draws come from an explicit `torch.Generator`, in this order: LoRA
-weight dropout, the VAE posterior noise (raw latents), noise (and offset
-noise), timesteps.  Its numbers differ from `jax.random`'s; the loss
-function takes `vae_noise`, `noise` and `timesteps` that replace the
-draws, so the tests hand both sides the same values.  The UNet's own
+Random draws come from an explicit `torch.Generator`, in this order: the
+UNet LoRA's weight dropout, the text LoRA's, the VAE posterior noise (raw
+latents), noise (and offset noise), timesteps.  Its numbers differ from
+`jax.random`'s; the loss function takes `vae_noise`, `noise` and
+`timesteps` that replace the draws, so the tests hand both sides the same
+values.  The UNet's own
 dropout (the temporal convs' 0.1) draws from PyTorch's default generator
 of the device, and is off with `eval_train`.
 """
@@ -39,7 +44,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..lora.overlay import attach_lora, prepare_branch
+from ..lora.overlay import attach_lora, dropout_masks, prepare_branch
 from ..lora.sites import LoraSite
 from ..schedulers.ddpm import DDPMScheduler
 from .optim import ClippedAdamW, WrappedOptimizer, WrappedState, leaves
@@ -69,9 +74,12 @@ class TrainStepConfig:
     # package's default is False, which its engine always sets explicitly
     cache_latents: bool = True
     scaling_factor: float = 0.18215
-    unet_sites: Tuple[LoraSite, ...] = ()   # cloneofsimo branch sites
+    unet_sites: Tuple[LoraSite, ...] = ()   # UNet LoRA branch sites
+    text_sites: Tuple[LoraSite, ...] = ()   # CLIP LoRA branch sites
+    lora_version: str = "cloneofsimo"       # or "stable_lora"
     lora_scale: float = 1.0
     lora_unet_dropout: float = 0.0
+    lora_text_dropout: float = 0.0
     use_offset_noise: bool = False
     offset_noise_strength: float = 0.1
     # run the models in eval mode during training (disables dropout)
@@ -119,69 +127,130 @@ def tensor_to_vae_latent(cfg: TrainStepConfig, pixel_values: torch.Tensor,
     return latents.permute(0, 2, 1, 3, 4) * cfg.scaling_factor
 
 
-def make_loss_fn(cfg: TrainStepConfig):
+@dataclasses.dataclass
+class StepDraws:
+    """A step's random draws, taken once in the order the generator gives
+    them: the UNet LoRA's dropout masks, the text LoRA's, the VAE posterior
+    noise (raw latents), the noise (and offset noise), the timesteps; with
+    the latents they produce.  Both passes of a step read the same draws,
+    so the split step follows the fused one's trajectory."""
+    unet_masks: Optional[Dict[str, torch.Tensor]]
+    text_masks: Optional[Dict[str, torch.Tensor]]
+    latents: torch.Tensor
+    noise: torch.Tensor
+    timesteps: torch.Tensor
+
+
+def draw_step(cfg: TrainStepConfig, trainable, batch,
+              generator: torch.Generator,
+              noise: Optional[torch.Tensor] = None,
+              timesteps: Optional[torch.Tensor] = None,
+              vae_noise: Optional[torch.Tensor] = None) -> StepDraws:
+    """The prologue of a step (JAX `loss_fn`'s rng splits, train_step.py
+    :211-235): `noise`, `timesteps` and `vae_noise` replace their draws
+    when given."""
+    train_mode = not cfg.eval_train
+    masks = {}
+    for group, sites, rate in (
+            ("unet_lora", cfg.unet_sites, cfg.lora_unet_dropout),
+            ("text_lora", cfg.text_sites, cfg.lora_text_dropout)):
+        masks[group] = (dropout_masks(trainable[group], sites, rate,
+                                      generator)
+                        if group in trainable and train_mode else None)
+    if cfg.cache_latents:
+        latents = batch["pixel_values"]          # cached latents
+    else:
+        latents = tensor_to_vae_latent(cfg, batch["pixel_values"],
+                                       generator, vae_noise)
+    if noise is None:
+        noise = sample_noise(generator, latents, cfg.offset_noise_strength,
+                             cfg.use_offset_noise)
+    if timesteps is None:
+        timesteps = torch.randint(0, cfg.scheduler.num_train_timesteps,
+                                  (latents.shape[0],), generator=generator,
+                                  device=latents.device)
+    return StepDraws(masks["unet_lora"], masks["text_lora"], latents, noise,
+                     timesteps)
+
+
+def attach_branches(cfg: TrainStepConfig, trainable,
+                    draws: Optional[StepDraws] = None):
+    """Attach the UNet and text LoRA branches of `trainable` (the step's
+    dropout masks, or none), or detach them where a group is absent."""
+    for group, model, sites, rate, masks in (
+            ("unet_lora", cfg.unet, cfg.unet_sites, cfg.lora_unet_dropout,
+             draws.unet_masks if draws else None),
+            ("text_lora", cfg.text_encoder, cfg.text_sites,
+             cfg.lora_text_dropout, draws.text_masks if draws else None)):
+        branch = None
+        if group in trainable:
+            branch = prepare_branch(trainable[group], sites, cfg.lora_scale,
+                                    masks, rate, version=cfg.lora_version)
+        attach_lora(model, branch)
+
+
+def text_is_trainable(trainable) -> bool:
+    """The text path trains (full text tensors or a text LoRA): pass 1 is
+    then the frame-1 pass on the non-detached text states (JAX :243)."""
+    return bool(trainable.get("text")) or "text_lora" in trainable
+
+
+def make_loss_fn(cfg: TrainStepConfig, pass_sel: Optional[int] = None):
     """loss_fn(trainable, batch, generator, noise=None, timesteps=None,
-    vae_noise=None) -> (loss, {'loss0', 'loss1'}); differentiable in
-    `trainable`."""
+    vae_noise=None, draws=None) -> (loss, {'loss0', 'loss1'});
+    differentiable in `trainable`.  `pass_sel` picks the passes, as the
+    JAX `make_loss_fn`'s does: None both, 0 pass 0 (with the x2 of
+    `two_pass=False`), 1 pass 1 (a constant 0 when there is none).  `draws`
+    (`draw_step`) replaces the step's own draws."""
     def loss_fn(trainable, batch, generator: torch.Generator,
                 noise: Optional[torch.Tensor] = None,
                 timesteps: Optional[torch.Tensor] = None,
-                vae_noise: Optional[torch.Tensor] = None):
-        if "text_lora" in trainable:
-            raise NotImplementedError(
-                "text-encoder LoRA is not ported yet: ROADMAP Queue 1 item 1")
+                vae_noise: Optional[torch.Tensor] = None,
+                draws: Optional[StepDraws] = None):
         train_mode = not cfg.eval_train
         cfg.unet.train(train_mode)
         cfg.text_encoder.train(train_mode)
-        branch = None
-        if "unet_lora" in trainable:
-            branch = prepare_branch(
-                trainable["unet_lora"], cfg.unet_sites, cfg.lora_scale,
-                cfg.lora_unet_dropout if train_mode else 0.0, generator)
-        attach_lora(cfg.unet, branch)
-
-        if cfg.cache_latents:
-            latents = batch["pixel_values"]      # cached latents
-        else:
-            latents = tensor_to_vae_latent(cfg, batch["pixel_values"],
-                                           generator, vae_noise)
+        if draws is None:
+            draws = draw_step(cfg, trainable, batch, generator, noise,
+                              timesteps, vae_noise)
+        attach_branches(cfg, trainable, draws)
+        latents, noise, timesteps = draws.latents, draws.noise, \
+            draws.timesteps
         video_length = latents.shape[2]
-        if noise is None:
-            noise = sample_noise(generator, latents,
-                                 cfg.offset_noise_strength,
-                                 cfg.use_offset_noise)
-        bsz = latents.shape[0]
-        if timesteps is None:
-            timesteps = torch.randint(0, cfg.scheduler.num_train_timesteps,
-                                      (bsz,), generator=generator,
-                                      device=latents.device)
         noisy_latents = cfg.scheduler.add_noise(latents, noise, timesteps)
-
+        target = cfg.scheduler.training_target(latents, noise, timesteps)
         token_ids = batch["prompt_ids"]
         if token_ids.dim() > 2:
             token_ids = token_ids[:, 0]
-        hidden_states = cfg.text_encoder(token_ids)
-        target = cfg.scheduler.training_target(latents, noise, timesteps)
-        text_trainable = bool(trainable.get("text"))
+        text_trainable = text_is_trainable(trainable)
+        runs0 = pass_sel in (None, 0)
+        runs1 = pass_sel in (None, 1) and video_length > 1 and (
+            text_trainable or cfg.two_pass)
+        # pass 0 reads the text states detached when multi-frame: without
+        # pass 1 they need no graph
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and (runs1 or video_length == 1)):
+            hidden_states = cfg.text_encoder(token_ids)
 
         def unet_fwd(latents_in, target_in, hs):
             pred = cfg.unet(latents_in, timesteps, hs)
             return torch.mean(torch.square(pred.float() - target_in.float()))
 
-        # pass 0: full clip; text detached when multi-frame
-        hs0 = hidden_states.detach() if video_length > 1 else hidden_states
-        raw_loss0 = unet_fwd(noisy_latents, target, hs0)
-        loss0 = raw_loss0
-        if video_length > 1 and not text_trainable and not cfg.two_pass:
-            # skipped redundant pass: x2 keeps the expected gradient
-            loss0 = loss0 * 2.0
-        loss1 = torch.zeros((), device=latents.device)
-        if video_length > 1:
+        zero = torch.zeros((), device=latents.device)
+        raw_loss0 = loss0 = loss1 = zero
+        if runs0:
+            hs0 = (hidden_states.detach() if video_length > 1
+                   else hidden_states)
+            raw_loss0 = loss0 = unet_fwd(noisy_latents, target, hs0)
+            if video_length > 1 and not text_trainable and not cfg.two_pass:
+                # skipped redundant pass: x2 keeps the expected gradient
+                loss0 = loss0 * 2.0
+        if runs1:
             if text_trainable:
                 # frame 1 only, with the trainable text
                 loss1 = unet_fwd(noisy_latents[:, :, 1:2],
                                  target[:, :, 1:2], hidden_states)
-            elif cfg.two_pass:
+            else:
                 loss1 = unet_fwd(noisy_latents, target, hidden_states)
         loss = loss0 + loss1
         return loss, {"loss0": raw_loss0.detach(), "loss1": loss1.detach()}
@@ -206,6 +275,17 @@ def _ema_update(cfg: TrainStepConfig, state: TrainState, optimizer):
         e.copy_(e * cfg.ema_decay + p.to(e.dtype) * (1.0 - cfg.ema_decay))
 
 
+def _finish_step(cfg: TrainStepConfig, optimizer, state: TrainState,
+                 loss, aux):
+    grad_norm = optimizer.step(state.opt_state, state.step)
+    _ema_update(cfg, state, optimizer)
+    metrics = {"loss": loss.detach(), **aux, "grad_norm": grad_norm}
+    if (isinstance(optimizer, WrappedOptimizer)
+            and optimizer.max_consecutive_errors):
+        metrics["notfinite_drops"] = state.opt_state.total_notfinite
+    return dataclasses.replace(state, step=state.step + 1), metrics
+
+
 def make_train_step(cfg: TrainStepConfig,
                     optimizer: Union[ClippedAdamW, WrappedOptimizer]):
     """train_step(state, batch) -> (state, metrics): loss, backward,
@@ -219,13 +299,39 @@ def make_train_step(cfg: TrainStepConfig,
             p.grad = None
         loss, aux = loss_fn(state.trainable, batch, state.generator)
         loss.backward()
-        grad_norm = optimizer.step(state.opt_state, state.step)
-        _ema_update(cfg, state, optimizer)
-        metrics = {"loss": loss.detach(), **aux, "grad_norm": grad_norm}
-        if (isinstance(optimizer, WrappedOptimizer)
-                and optimizer.max_consecutive_errors):
-            metrics["notfinite_drops"] = state.opt_state.total_notfinite
-        return dataclasses.replace(state, step=state.step + 1), metrics
+        return _finish_step(cfg, optimizer, state, loss, aux)
+
+    return train_step
+
+
+def make_split_train_step(cfg: TrainStepConfig,
+                          optimizer: Union[ClippedAdamW, WrappedOptimizer]):
+    """The split step (JAX `make_split_train_step`, train_step.py:352-433)
+    in eager form: the step's draws once (`draw_step`), pass 0 forward and
+    backward, then pass 1 forward and backward, the gradients summed in
+    `.grad`, then one optimizer update.  grad(loss0 + loss1) = grad(loss0)
+    + grad(loss1), so the trajectory is the fused step's to float
+    rounding, and the generator advances as in the fused step.  What it
+    changes is peak memory: pass 0's activations are freed before pass 1
+    runs.  The CLIP runs once in each pass."""
+    loss0_fn = make_loss_fn(cfg, pass_sel=0)
+    loss1_fn = make_loss_fn(cfg, pass_sel=1)
+
+    def train_step(state: TrainState, batch):
+        for p in leaves(state.trainable):
+            p.grad = None
+        draws = draw_step(cfg, state.trainable, batch, state.generator)
+        loss0, aux0 = loss0_fn(state.trainable, batch, state.generator,
+                               draws=draws)
+        loss0.backward()
+        loss0 = loss0.detach()
+        loss1, aux1 = loss1_fn(state.trainable, batch, state.generator,
+                               draws=draws)
+        if loss1.requires_grad:
+            loss1.backward()
+        aux = {"loss0": aux0["loss0"], "loss1": aux1["loss1"]}
+        return _finish_step(cfg, optimizer, state, loss0 + loss1.detach(),
+                            aux)
 
     return train_step
 

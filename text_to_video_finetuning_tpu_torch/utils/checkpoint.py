@@ -56,9 +56,10 @@ _BIN_FILES = ("diffusion_pytorch_model.bin", "pytorch_model.bin")
 
 # -- safetensors codec ---------------------------------------------------------
 
-def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+def read_safetensors(path: str, with_metadata: bool = False):
     """Read every tensor of a .safetensors file as CPU tensors (views of one
-    buffer holding the file)."""
+    buffer holding the file); with `with_metadata`, return (tensors, the
+    header's `__metadata__` dict of strings, {} when it has none)."""
     with open(path, "rb") as f:
         n_header = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(n_header))
@@ -78,12 +79,21 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
         if start % dtype.itemsize:
             raw = raw.clone()      # realign a misaligned tensor
         out[name] = raw.view(dtype).reshape(info["shape"])
+    if with_metadata:
+        return out, dict(header.get("__metadata__") or {})
     return out
 
 
-def write_safetensors(tensors: Mapping[str, torch.Tensor], path: str):
-    """Write tensors (any device) to a .safetensors file."""
-    header: Dict[str, object] = {"__metadata__": {"format": "pt"}}
+def write_safetensors(tensors: Mapping[str, torch.Tensor], path: str,
+                      metadata: Optional[Mapping[str, str]] = None):
+    """Write tensors (any device) to a .safetensors file, with `metadata`
+    (str -> str) as its `__metadata__`, or {"format": "pt"} without."""
+    if metadata is None:
+        metadata = {"format": "pt"}
+    if not all(isinstance(k, str) and isinstance(v, str)
+               for k, v in metadata.items()):
+        raise TypeError("safetensors metadata maps str to str")
+    header: Dict[str, object] = {"__metadata__": dict(metadata)}
     blobs = []
     offset = 0
     for name, t in tensors.items():
@@ -161,9 +171,11 @@ def lora_from_jax(flat_lora: Mapping[Union[str, Tuple[str, ...]],
                   kind: str = "unet"
                   ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The JAX package's LoRA tree -> the port's LoRA parameters
-    {site torch name: {'down', 'up'}} (lora/overlay.py).  The JAX tree is
-    already in cloneofsimo's torch layout, so this is a re-keying of each
-    site's flax path to its torch name; the tensors are fp32 copies."""
+    {site torch name: {'down', 'up'}} (lora/overlay.py).  Both packages keep
+    each flavour's torch layout (cloneofsimo's kernels, loralib's A / B
+    matrices), so this is a re-keying of each site's flax path to its torch
+    name under `kind` ('unet' or 'text_encoder', whose sites include the
+    stable_lora embeddings); the tensors are fp32 copies."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for path, arr in flat_lora.items():
         path = tuple(path.split("/")) if isinstance(path, str) else tuple(path)

@@ -12,8 +12,10 @@ The format is the port's own, one `torch.save` file
 other's train state.  It holds
 
 * `step`: the micro-step counter (`TrainState.step`);
-* `trainable`: the trainable tensors by group and torch name (fp32);
-* `opt`: each parameter's AdamW `step`, `exp_avg` and `exp_avg_sq`, and
+* `trainable`: the trainable tensors by group (`unet`, `text`,
+  `unet_lora`, `text_lora`) and torch name (fp32);
+* `opt`: each parameter's AdamW `step`, `exp_avg` and `exp_avg_sq` (8-bit
+  AdamW: `step` and the int8 values and fp32 scales of both moments), and
   the accumulation window and non-finite counters
   (`training/optim.py::opt_state_dict`);
 * `generator`: the step generator's state;
