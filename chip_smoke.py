@@ -2,7 +2,8 @@
 hand-written kernels (flash attention: forward K1, backward K2 dK/dV and K3
 dQ; fused GroupNorm+SiLU: forward K4, backward K5), checks each against its
 plain PyTorch version, serves three requests through the port's serving
-path, takes LoRA training steps through its training path in five
+path (and, in phase 19, through LoRA at inference, a baked pipeline and the
+batching HTTP server), takes LoRA training steps through its training path in five
 configurations and trains configs/v2/train_config.yaml's full finetune and
 the three LoRA YAMLs (lora_training_config.yaml, stable_lora_config.yaml,
 low_vram_config_example.yaml) through the training engine (with
@@ -97,7 +98,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
  18. low_vram_config_example.yaml's keys (2 frames, 8-bit AdamW, offset
      noise, LoRA on the whole UNet with the temporal attentions' to_out
      finetuned, text LoRA): 3 finite steps, the int8 optimizer state's
-     bytes beside fp32 AdamW's for the same tensors.
+     bytes beside fp32 AdamW's for the same tensors;
+ 19. inference and serving on phase 4's pipeline: (a) a cloneofsimo LoRA
+     drawn from SEED (nonzero `up`) on the UNet and the CLIP and a `.ti.pt`
+     with `<sks>`, through `initialize_pipeline(lora_path=...)`: at
+     lora_scale 0 request (a) bit for bit as in phase 4, at 1 a `<sks>`
+     prompt changed by the LoRA; (b) `bake_lora_main --device cuda`, the
+     baked pipeline's UNet and CLIP equal to the lora_path pipeline's bit
+     for bit, `<sks>` at the same id, the same video; (c) `T2VServer`
+     (max_batch 2, 200 ms window) warmed at batch 1 and 2, the card's busy
+     share over a batch of each traced with torch.profiler, four concurrent
+     POST /generate (two coalesced into one batch of B=64 for K1, one
+     no_batch, one of 24 frames in windows of 8), then img2img from
+     request (a)'s mp4 at init_weight 0.5: every answer 200 with its mp4,
+     /stats 5 requests in 4 batches, the K1 launches of each batch derived
+     from its steps and windows, then a drain that answers 503 and exits;
+     (d) `inference_main` writes one 16-frame mp4; (e) LaMa
+     (`inpaint_watermark`, random big-lama weights from SEED) on request
+     (a)'s frames on the card against the CPU.  Every K1 launch of (a)-(c)
+     on `sm90`, each load's seconds and peak memory printed.
 The last two lines are the kernels record and the device record (JSON).
 K1, K2 and K3 run on two routes (ops/flash_attention.py::flash_route):
 `sm90` (csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dkv_sm90.cu,
@@ -134,12 +153,15 @@ K1_SHAPES = [
     ("spatial_cross_77", 2, 256, 77, 2, 64),
     ("unaligned_q", 2, 200, 200, 1, 64),
     ("slice", 32, 1024, 1024, 5, 64),
+    # phase 19's coalesced batch of two requests: 2 x 2 (CFG) x 16 frames
+    ("serving_b2", 64, 1024, 1024, 5, 64),
 ]
 # the training step's spatial self-attention: B*F = 16 frames, 5 heads; and
 # the 576x320 step's (latents 40x72: 2,880 tokens)
 TRAIN_SHAPE = ("train", 16, 1024, 1024, 5, 64)
 HIRES_SHAPE = ("hires", 16, 2880, 2880, 5, 64)
-FLASH_TIMED = ("slice", "train", "engine", "hybrid", "lowvram", "hires")
+FLASH_TIMED = ("slice", "serving_b2", "train", "engine", "hybrid", "lowvram",
+               "hires")
 FP32_TOL = 1e-4         # max |d o| and max |d lse| in fp32
 BF16_TOL = 2e-2         # max |d o| of bf16 against the fp32 plain result
 LSE16_TOL = 1e-3        # max |d lse| of bf16 K1 against the plain lse of the
@@ -150,6 +172,9 @@ BWD_BF16_REL = 3e-2     # bf16 kernel max error / max |fp32 reference|
 UNET_FP32_REL_L2_TOL = 1e-4  # UNet flash vs plain, fp32 weights, rel. L2
 UNET_BF16_EXCESS = 1.1       # bf16 flash error / bf16 plain error, vs fp32
 GRAD_FP32_REL_L2_TOL = 1e-3  # LoRA grads flash vs plain, fp32 weights
+BAKED_REL_L2_TOL = 1.2e-2     # baked vs lora_path video, should it not be
+                              # bit for bit: the bf16 forward floor
+                              # phase 5 prints (plain bf16 vs fp32)
 # (name, prompt, seed, frames, window): 256x256, 25 steps, guidance 9
 REQUESTS = [
     ("a", "a red panda eating bamboo, (photorealistic)1.2", 11, 16, None),
@@ -685,9 +710,10 @@ def write_pipeline(path: str):
 
 
 def serve(fa, pipeline_dir):
-    """Phases 4 and 5; writes the pipeline directory `pipeline_dir` (phase
-    14 trains from it) and returns the K1 launch counts of the serving path
-    (`read_counts` keys), read just after it."""
+    """Phases 4 and 5; writes the pipeline directory `pipeline_dir` (phases
+    14-19 use it) and returns the K1 launch counts of the serving path
+    (`read_counts` keys), read just after it, and request (a)'s video on the
+    host (phase 19 holds its LoRA and server paths against it)."""
     from text_to_video_finetuning_tpu_torch.pipelines.inference import (
         generate, initialize_pipeline)
 
@@ -739,6 +765,8 @@ def serve(fa, pipeline_dir):
                  f"{expected}")
         if on_wmma:
             fail(f"request {name}: {on_wmma} K1 launches on the wmma route")
+        if name == "a":
+            video_a = video.cpu()             # phase 19 holds it
     serving_launches = read_counts()          # read just after the path
     hook.remove()
     if serving_launches["K1"] == 0:
@@ -748,7 +776,7 @@ def serve(fa, pipeline_dir):
     # backend (every attention on the kernel) and the plain one, in bf16 and
     # with the same weights in fp32
     check_unet_in_context(pipe.unet, first_input["args"])
-    return serving_launches
+    return serving_launches, video_a
 
 
 def counters():
@@ -1851,6 +1879,461 @@ def lowvram_yaml_phase(pipeline_dir, root):
     return launches
 
 
+# -- phase 19: inference and serving at full width ------------------------------
+
+LORA_RANK = 4
+LORA_UP_STD = 5e-3      # nonzero `up`: each delta ~5-25 % of its weight
+LEARNED_TOKEN = "<sks>"
+SKS_PROMPT = f"a photo of {LEARNED_TOKEN} eating bamboo"
+# (name, prompt, seed, frames, window, no_batch): the four concurrent HTTP
+# requests; the first two share a signature and must coalesce
+HTTP_REQUESTS = [
+    ("pair_0", "a corgi running on a beach", 21, 16, None, False),
+    ("pair_1", "a lighthouse in a storm", 22, 16, None, False),
+    ("alone", "a bowl of ramen, steam rising", 23, 16, None, True),
+    ("long", "clouds over a mountain ridge", 24, 24, 8, False),
+]
+INIT_WEIGHT = 0.5
+LAMA_TOL = 1e-3         # max |d| of the card's fp32 LaMa against the CPU's
+                        # on [0, 1] frames (fp32 throughout; TF32 is off)
+SMOKE_LAMA_NGF = 64     # big-lama's width
+LAMA_INIT_GAIN = 0.7
+
+
+def inference_lora(root):
+    """Phase 19a's LoRA directory: cloneofsimo files drawn from SEED with
+    nonzero `up` on the UNet (UNet3DConditionModel targets) and the CLIP
+    (CLIPEncoderLayer), and a `.ti.pt` with LEARNED_TOKEN."""
+    from text_to_video_finetuning_tpu_torch.lora import formats
+    from text_to_video_finetuning_tpu_torch.lora.handler import LoraHandler
+    from text_to_video_finetuning_tpu_torch.lora.overlay import (
+        init_lora_params)
+    from text_to_video_finetuning_tpu_torch.models.clip_text import (
+        CLIP_MS_TEXT_CONFIG, CLIPTextModel)
+    from text_to_video_finetuning_tpu_torch.models.unet3d import (
+        UNET3D_MS_1_7B_CONFIG, UNet3DConditionModel)
+
+    path = f"{root}/inference_lora"
+    os.makedirs(path, exist_ok=True)
+    handler = LoraHandler(use_unet_lora=True, use_text_lora=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.device("meta"):
+        models = {"unet": UNet3DConditionModel(UNET3D_MS_1_7B_CONFIG),
+                  "text_encoder": CLIPTextModel(CLIP_MS_TEXT_CONFIG)}
+    n_values = 0
+    for kind, model in models.items():
+        sites = (handler.unet_sites(model) if kind == "unet"
+                 else handler.text_encoder_sites(model))
+        lora = init_lora_params(sites, LORA_RANK, g)
+        for entry in lora.values():
+            entry["up"] = torch.randn(entry["up"].shape, generator=g,
+                                      device="cuda") * LORA_UP_STD
+            n_values += sum(t.numel() for t in entry.values())
+        formats.save_lora_pt(lora, sites, f"{path}/{SEED}_{kind}.pt")
+    hidden = CLIP_MS_TEXT_CONFIG.hidden_size
+    embed = torch.randn(hidden, generator=g, device="cuda") * hidden ** -0.5
+    torch.save({LEARNED_TOKEN: embed.cpu()}, f"{path}/learned.ti.pt")
+    print(f"LoRA written: rank {LORA_RANK}, {n_values} values on the UNet "
+          f"and the CLIP, and {LEARNED_TOKEN} in learned.ti.pt")
+    return path
+
+
+def timed_load(label, **kwargs):
+    from text_to_video_finetuning_tpu_torch.pipelines.inference import (
+        initialize_pipeline)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = initialize_pipeline(device="cuda", **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"{label} load: {seconds:.2f} s, peak {peak / 2**30:.2f} GiB above "
+          f"the {held / 2**30:.2f} GiB held before, then "
+          f"{(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB")
+    return pipe, seconds, peak
+
+
+def counted_request(label, pipe, prompt, seed, frames=16, window=None):
+    """One `generate` at phase 4's settings, its K1 launches checked:
+    FLASH_PER_UNET x STEPS x windows, none on `wmma`."""
+    from text_to_video_finetuning_tpu_torch.pipelines.inference import (
+        generate)
+    before = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    video = generate(pipe, prompt, width=SIZE, height=SIZE,
+                     num_frames=frames, window_size=window, num_steps=STEPS,
+                     guidance_scale=GUIDANCE, seed=seed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = read_counts()
+    launches = after["K1"] - before["K1"]
+    on_wmma = after["K1_wmma"] - before["K1_wmma"]
+    expected = FLASH_PER_UNET * STEPS * (frames // (window or frames))
+    finite = bool(torch.isfinite(video).all())
+    print(f"{label}: {seconds:.2f} s, K1 launches {launches} ({on_wmma} on "
+          f"wmma), finite {finite}")
+    if tuple(video.shape) != (1, 3, frames, SIZE, SIZE) or not finite:
+        fail(f"{label}: bad output {tuple(video.shape)}")
+    if launches != expected or on_wmma:
+        fail(f"{label}: {launches} K1 launches ({on_wmma} on wmma), "
+             f"expected {expected} on sm90")
+    return video.cpu()
+
+
+def same_weights(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                          for k in sa)
+
+
+def mp4_of(video, path):
+    """Request (a)'s video as an mp4 (the img2img request's init video)."""
+    from text_to_video_finetuning_tpu_torch.data.video import export_to_video
+    from text_to_video_finetuning_tpu_torch.serving.server import postprocess
+    export_to_video(postprocess(video[0], False, "cpu"), path, 12)
+    return path
+
+
+def post_json(base, payload, timeout=600):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"{base}/generate", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def get_json(base, path):
+    import urllib.request
+    with urllib.request.urlopen(f"{base}{path}", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def traced(fn):
+    """(wall seconds, seconds of device kernel time) of fn() under
+    torch.profiler, tracing the card's kernels only (profile_step's rule;
+    no host events, which take the profiler tens of seconds to sum over a
+    full request); 0.0 device seconds when it records none."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]   # kernels only
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us = 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if (getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            device_us += max(us, 0)
+    return wall, device_us / 1e6
+
+
+def http_phase(pipeline_dir, root, video_a):
+    """Phase 19c: the batching HTTP server on phase 4's pipeline.  Returns
+    the K1 counts of the served requests (warm-up and the drain's request
+    excluded)."""
+    import base64
+    import threading
+    from text_to_video_finetuning_tpu_torch.data.video import VideoReader
+    from text_to_video_finetuning_tpu_torch.serving import (
+        GenerationRequest, T2VServer)
+
+    t0 = time.perf_counter()
+    server = T2VServer(model=pipeline_dir, port=0, max_batch=2,
+                       batch_window_ms=200, output_dir=f"{root}/served",
+                       device="cuda")
+    print(f"T2VServer up: {time.perf_counter() - t0:.2f} s")
+    warm = GenerationRequest(prompt="warmup", width=SIZE, height=SIZE,
+                             num_frames=16, num_steps=STEPS,
+                             guidance_scale=GUIDANCE)
+    for b in (1, 2):
+        t0 = time.perf_counter()
+        server.warmup(warm, batch_sizes=[b])
+        print(f"warm-up batch {b}: {time.perf_counter() - t0:.2f} s")
+
+    # the card's busy share over a batch of 1 and of 2, traced on this
+    # thread while the worker is idle (the profiler's CUPTI client is
+    # registered on the thread that starts it)
+    for b in (1, 2):
+        t0 = time.perf_counter()
+        wall, device = traced(lambda: server._run_batch([warm] * b))
+        print(f"trace of batch {b} taken and summed in "
+              f"{time.perf_counter() - t0:.1f} s")
+        busy = (f"{100 * device / wall:.1f} % busy ({device:.3f} s of "
+                "kernel time)" if device else "no device time traced")
+        print(f"traced batch of {b}: {wall:.2f} s wall, {busy}")
+
+    batches = []           # (size, frames, window, init, K1, wmma, s)
+    run_batch = server.worker.run_batch
+
+    def counted(requests):
+        before = read_counts()
+        t = time.perf_counter()
+        out = run_batch(requests)     # ends on the host: synchronized
+        after = read_counts()
+        head = requests[0]
+        batches.append((len(requests), head.num_frames,
+                        head.resolved_window(),
+                        head.init_video_base64 is not None,
+                        after["K1"] - before["K1"],
+                        after["K1_wmma"] - before["K1_wmma"],
+                        time.perf_counter() - t))
+        return out
+
+    server.worker.run_batch = counted
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://{server.host}:{server.port}"
+    if get_json(base, "/healthz")["status"] != "ok":
+        fail("/healthz is not ok")
+    common = dict(width=SIZE, height=SIZE, num_steps=STEPS,
+                  guidance_scale=GUIDANCE)
+    results = {}
+
+    def call(name, payload):
+        t = time.perf_counter()
+        results[name] = post_json(base, payload) + (time.perf_counter() - t,)
+
+    zero_counts()                       # the served requests start here
+    threads = [threading.Thread(target=call, args=(name, dict(
+        common, prompt=prompt, seed=seed, num_frames=frames,
+        window_size=window, no_batch=alone)))
+        for name, prompt, seed, frames, window, alone in HTTP_REQUESTS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    with open(mp4_of(video_a, f"{root}/request_a.mp4"), "rb") as f:
+        init_b64 = base64.b64encode(f.read()).decode()
+    call("img2img", dict(common, prompt=REQUESTS[0][1], seed=31,
+                         num_frames=16, init_video_base64=init_b64,
+                         init_weight=INIT_WEIGHT))
+    launches = read_counts()            # read just after the path
+    stats = get_json(base, "/stats")
+
+    want = {name: (frames, 2 if name.startswith("pair") else 1)
+            for name, _, _, frames, _, _ in HTTP_REQUESTS}
+    want["img2img"] = (16, 1)
+    for name, (frames, coalesced) in want.items():
+        code, body, seconds = results[name]
+        print(f"HTTP {name}: {code} in {seconds:.2f} s, "
+              f"coalesced {body.get('coalesced')}, "
+              f"{body.get('num_frames')} frames")
+        if code != 200:
+            fail(f"HTTP {name}: {code} {body}")
+        n_read = len(VideoReader(body["path"]))
+        if (body["num_frames"], n_read, body["coalesced"]) != \
+                (frames, frames, coalesced):
+            fail(f"HTTP {name}: {body['num_frames']} frames ({n_read} in "
+                 f"the mp4), coalesced {body['coalesced']}; expected "
+                 f"{frames} frames, coalesced {coalesced}")
+    print(f"/stats: {stats}")
+    if (stats["requests"], stats["batches"], stats["errors"]) != (5, 4, 0):
+        fail(f"/stats counts {stats}, expected 5 requests in 4 batches")
+    start = round(INIT_WEIGHT * STEPS)     # pipelines/diffuse.py's rule
+    for size, frames, window, init, k1, wmma, seconds in batches:
+        steps = STEPS - start if init else STEPS
+        expected = FLASH_PER_UNET * steps * (frames // window)
+        print(f"batch of {size}: {frames}f window {window}"
+              f"{' img2img' if init else ''}: {seconds:.2f} s, K1 {k1} "
+              f"({wmma} on wmma), expected {expected}")
+        if k1 != expected or wmma:
+            fail(f"served batch of {size} ({frames}f): {k1} K1 launches "
+                 f"({wmma} on wmma), expected {expected} on sm90")
+    if sorted(b[0] for b in batches) != [1, 1, 1, 2]:
+        fail(f"served batch sizes {[b[0] for b in batches]}")
+    b2 = next(b[6] for b in batches if b[0] == 2)
+    b1 = [b[6] for b in batches if b[0] == 1 and b[1] == 16 and not b[3]]
+    print(f"batch-2 dispatch {b2:.2f} s against batch-1 {b1[0]:.2f} s "
+          f"(2 x batch-1 = {2 * b1[0]:.2f} s)")
+
+    # drain: one request in flight, then SIGTERM's path; a request sent
+    # during the drain gets 503 and the server exits
+    late = {}
+    inflight = threading.Thread(target=lambda: late.update(
+        inflight=post_json(base, dict(common, prompt="a late request",
+                                      seed=41, num_frames=16))))
+    inflight.start()
+    for _ in range(600):
+        if server.worker.snapshot()["queue_depth"] == 1:
+            break
+        time.sleep(0.01)
+    server.request_drain(timeout_s=300)
+    if not server._draining.wait(timeout=10):
+        fail("the drain did not start")
+    code, _ = post_json(base, dict(common, prompt="rejected", num_frames=16))
+    inflight.join(timeout=300)
+    thread.join(timeout=300)
+    print(f"drain: a request during it got {code}, the in-flight one "
+          f"{late['inflight'][0]}, server exited {not thread.is_alive()}")
+    if code != 503 or late["inflight"][0] != 200 or thread.is_alive():
+        fail("the drain did not finish the in-flight request, answer 503 "
+             "and exit")
+    return launches
+
+
+def write_lama_ckpt(path):
+    """A Lightning-style best.ckpt of big-lama's generator (ngf 64), weights
+    drawn from SEED: convolutions N(0, (0.7^2)/fan_in), the gain at which the
+    inpainted band spans about [0.2, 0.9] with no pixel saturated (at 0.5
+    the output sits at 0.5 +- 0.01, at 0.8 a third of it saturates);
+    BatchNorm affine and running statistics near identity
+    (tests/test_lama_golden.py's scheme)."""
+    from text_to_video_finetuning_tpu_torch.models.lama import (
+        LargeMaskInpainting)
+    g = torch.Generator().manual_seed(SEED)
+    model = LargeMaskInpainting(ngf=SMOKE_LAMA_NGF)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim > 1:
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=g)
+                        * LAMA_INIT_GAIN * fan_in ** -0.5)
+            elif name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+            else:
+                p.copy_(1.0 + torch.randn(p.shape, generator=g) * 0.1)
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(torch.randn(b.shape, generator=g) * 0.1)
+            elif name.endswith("running_var"):
+                b.copy_(0.5 + torch.rand(b.shape, generator=g))
+    torch.save({"state_dict": {f"generator.{k}": v for k, v in
+                               model.state_dict().items()}}, path)
+    return path
+
+
+def lama_phase(root, video_a):
+    """Phase 19e: LaMa's watermark inpaint on request (a)'s 16 frames, on
+    the card and on the CPU, both fp32."""
+    import numpy as np
+    from text_to_video_finetuning_tpu_torch.models.lama import (
+        inpaint_watermark)
+    ckpt = write_lama_ckpt(f"{root}/best.ckpt")
+    frames = ((video_a[0].clamp(-1, 1).permute(1, 0, 2, 3) + 1) / 2).numpy()
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[device] = inpaint_watermark(frames, ckpt_path=ckpt,
+                                        device=device)
+        print(f"LaMa on {device}: {time.perf_counter() - t0:.2f} s")
+    err = float(np.abs(out["cuda"] - out["cpu"]).max())
+    h = frames.shape[2]                 # default_watermark_mask's rows
+    band = out["cpu"][:, :, int(round(h * 145 / 256)):
+                      int(round(h * 192 / 256))]
+    print(f"LaMa {tuple(frames.shape)}: card vs CPU max|d| {err:.3e}; the "
+          f"band's range [{band.min():.3f}, {band.max():.3f}], "
+          f"{float(((band < 0.01) | (band > 0.99)).mean()):.3f} saturated")
+    if not np.isfinite(out["cuda"]).all() or not err <= LAMA_TOL:
+        fail(f"LaMa on the card differs from the CPU by {err}")
+
+
+def inference_phase(pipeline_dir, root, video_a):
+    """Phase 19: LoRA at inference, the bake, the HTTP server, the
+    inference CLI and LaMa at full width.  Returns {path: counts} for
+    `lora_inference`, `baked` and `serving_http`."""
+    from text_to_video_finetuning_tpu_torch import cli
+    t19 = time.perf_counter()
+
+    def at(step):
+        print(f"[clock] {step} at {time.perf_counter() - t19:.1f} s into "
+              "phase 19")
+
+    lora_dir = inference_lora(root)
+    by_path = {}
+
+    # a. lora_scale 0 is phase 4's pipeline bit for bit; at 1 the LoRA and
+    # the learned token change the video
+    zero_counts()
+    pipe0, _, _ = timed_load("LoRA pipeline, scale 0", model=pipeline_dir,
+                             lora_path=lora_dir, lora_scale=0.0)
+    video = counted_request("LoRA scale 0, request a", pipe0,
+                            REQUESTS[0][1], REQUESTS[0][2])
+    if not torch.equal(video, video_a):
+        fail("lora_scale=0 does not reproduce phase 4's request a: "
+             f"relative L2 {rel_l2(video, video_a):.3e}")
+    sks_base = counted_request("LoRA scale 0, <sks> prompt", pipe0,
+                               SKS_PROMPT, 11)
+    del pipe0
+    torch.cuda.empty_cache()
+    pipe1, _, _ = timed_load("LoRA pipeline, scale 1", model=pipeline_dir,
+                             lora_path=lora_dir, lora_scale=1.0)
+    sks = counted_request("LoRA scale 1, <sks> prompt", pipe1, SKS_PROMPT,
+                          11)
+    by_path["lora_inference"] = read_counts()
+    print(f"scale 1 vs scale 0 on the <sks> prompt: relative L2 "
+          f"{rel_l2(sks, sks_base):.3e}")
+    if torch.equal(sks, sks_base):
+        fail("the LoRA at scale 1 left the video unchanged")
+
+    # b. the bake: fp32 fold on the card, saved; loaded with no LoRA
+    at("19b starts")
+    baked_dir = f"{root}/baked"
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cli.bake_lora_main(["-m", pipeline_dir, "-lP", lora_dir, "-o",
+                        baked_dir, "--device", "cuda"])
+    print(f"bake: {time.perf_counter() - t0:.2f} s, peak "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB "
+          "above what was held")
+    zero_counts()
+    baked, _, _ = timed_load("baked pipeline", model=baked_dir)
+    if not (same_weights(baked.unet, pipe1.unet)
+            and same_weights(baked.text_encoder, pipe1.text_encoder)):
+        fail("the baked weights differ from the lora_path pipeline's")
+    tid = baked.tokenizer.convert_tokens_to_ids(LEARNED_TOKEN)
+    if tid != pipe1.tokenizer.convert_tokens_to_ids(LEARNED_TOKEN):
+        fail(f"the baked tokenizer holds {LEARNED_TOKEN} at {tid}")
+    baked_video = counted_request("baked, <sks> prompt", baked, SKS_PROMPT,
+                                  11)
+    by_path["baked"] = read_counts()
+    d = rel_l2(baked_video, sks)
+    print(f"baked vs lora_path video on the <sks> prompt: bit for bit "
+          f"{torch.equal(baked_video, sks)}, relative L2 {d:.3e}")
+    if d > BAKED_REL_L2_TOL:
+        fail(f"the baked pipeline's video differs by {d}")
+    del pipe1, baked
+    shutil.rmtree(baked_dir)
+    torch.cuda.empty_cache()
+
+    # c. the HTTP server
+    at("19c starts")
+    by_path["serving_http"] = http_phase(pipeline_dir, root, video_a)
+    torch.cuda.empty_cache()
+
+    # d. the inference CLI (no -x: the plain attention backend, as in JAX)
+    at("19d starts")
+    t0 = time.perf_counter()
+    paths = cli.inference_main(["-m", pipeline_dir, "-p", REQUESTS[0][1],
+                                "-o", f"{root}/cli_out", "-T", "16", "-s",
+                                str(STEPS), "-r", "11"])
+    from text_to_video_finetuning_tpu_torch.data.video import VideoReader
+    n = [len(VideoReader(p)) for p in paths]
+    print(f"inference_main: {time.perf_counter() - t0:.2f} s, {paths}, "
+          f"frames {n}")
+    if n != [16]:
+        fail(f"inference_main wrote {n} frames")
+    torch.cuda.empty_cache()
+
+    # e. LaMa
+    at("19e starts")
+    lama_phase(root, video_a)
+    at("19 ends")
+    return by_path
+
+
 def _tensors(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -1860,6 +2343,13 @@ def _tensors(tree):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def lap(phase):
+        """When each phase starts, for the run's time budget."""
+        print(f"[clock] phase {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1876,6 +2366,7 @@ def main() -> int:
     from text_to_video_finetuning_tpu_torch.ops import groupnorm as gn
     from text_to_video_finetuning_tpu_torch.ops import kernel_build
 
+    lap("2")
     # 2. build every kernel
     t0 = time.perf_counter()
     libs = kernel_build.build(force=True)
@@ -1884,29 +2375,35 @@ def main() -> int:
     for name, path in sorted(libs.items()):
         print(f"ptxas {name}: {kernel_build.ptxas_report(path)}")
 
+    lap("3")
     # 3. K1 against its plain version
     k1_timed = check_k1(fa)
 
+    lap("4-5")
     # 4-5. the serving path at full width; the pipeline directory stays for
     # phase 14
     workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     pipeline_dir = f"{workdir.name}/pipeline"
-    serving_launches = serve(fa, pipeline_dir)
+    serving_launches, video_a = serve(fa, pipeline_dir)
     torch.cuda.empty_cache()
 
+    lap("6")
     # 6. K2 / K3 against the plain backward
     bwd = check_k2_k3(fa)
 
     by_path = {"serving": serving_launches}
+    lap("7")
     # 7. the training path at full width (the "nothing" policy, unfused)
     by_path["training"], built = train_path("default", {}, TRAIN_STEPS,
                                             check_base=True)
 
+    lap("8")
     # 8. the backward in context
     grads_in_context(*built[1:])
     del built
     torch.cuda.empty_cache()
 
+    lap("9")
     # 9. K4 / K5 against the plain pair, on the steps' GroupNorm shapes
     geometries = {"256px": headline_norm_launches(16, (32, 32)),
                   "576x320": headline_norm_launches(HIRES["frames"],
@@ -1915,11 +2412,13 @@ def main() -> int:
     hires_shapes = sorted(geometries["576x320"][0])
     gn_timed = check_k4_k5(gn, geometries)
 
+    lap("10")
     # 10. bench.py's headline with the fused GroupNorm
     by_path["headline_fused"], fused = train_path(
         "headline_fused", dict(remat_policy=HEADLINE, fused_groupnorm=True),
         TRAIN_STEPS, norm_shapes=shapes)
 
+    lap("11")
     # 11. the headline unfused, and fused vs unfused in context
     by_path["headline_unfused"], unfused = train_path(
         "headline_unfused", dict(remat_policy=HEADLINE), 1)
@@ -1927,12 +2426,14 @@ def main() -> int:
     del fused, unfused
     torch.cuda.empty_cache()
 
+    lap("12")
     # 12. fusedgn+auto: the fused GroupNorm under the "nothing" policy
     by_path["fusedgn_auto"], built = train_path(
         "fusedgn_auto", dict(fused_groupnorm=True), 1)
     del built
     torch.cuda.empty_cache()
 
+    lap("13")
     # 13. hires16-fusedgn: 576x320 (latents 40x72), 16 frames
     by_path["hires_fused"], built = train_path(
         "hires_fused", dict(remat_policy=HEADLINE, fused_groupnorm=True,
@@ -1940,15 +2441,18 @@ def main() -> int:
     del built
     torch.cuda.empty_cache()
 
+    lap("14")
     # 14. the engine at full width (train_config.yaml), and its resume
     by_path["engine"], by_path["engine_resumed"] = engine_phase(
         pipeline_dir, workdir.name)
     torch.cuda.empty_cache()
 
+    lap("15")
     # 15. raw latents: the in-step VAE encode at 256x256x16
     by_path["raw_latents"] = raw_latents_phase()
     torch.cuda.empty_cache()
 
+    lap("16-18")
     # 16-18. the three LoRA YAMLs through the engine on phase 4's pipeline
     (by_path["lora_yaml"], by_path["lora_yaml_resumed"],
      by_path["lora_yaml_split"]) = lora_yaml_phase(pipeline_dir,
@@ -1957,8 +2461,16 @@ def main() -> int:
     by_path["stable_yaml"] = stable_yaml_phase(pipeline_dir, workdir.name)
     torch.cuda.empty_cache()
     by_path["lowvram_yaml"] = lowvram_yaml_phase(pipeline_dir, workdir.name)
+    torch.cuda.empty_cache()
+
+    lap("19")
+    # 19. inference and serving on phase 4's pipeline: LoRA at inference,
+    # the bake, the HTTP server, the inference CLI, LaMa
+    by_path.update(inference_phase(pipeline_dir, workdir.name, video_a))
     workdir.cleanup()
     torch.cuda.empty_cache()
+
+    lap("records")
 
     def launches(k):
         return {path: counts[k] for path, counts in by_path.items()
@@ -1985,6 +2497,7 @@ def main() -> int:
          "launches_by_route": by_route("K1"), **k1_timed["slice"],
          "shape": "B=32 S=1024 H=5 D=64 bf16 (serving)",
          "train_shape": k1_timed["train"],
+         "serving_b2_shape": k1_timed["serving_b2"],
          "hires_shape": k1_timed["hires"],
          **{f"{label}_shape": k1_timed[label]
             for label in ("engine", "hybrid", "lowvram")}},

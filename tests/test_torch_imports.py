@@ -10,8 +10,9 @@ card.
   export's) and the minimal tokenizer writer (byte-identical files); the
   walk imports the modules that came with the LoRA flavours, 8-bit AdamW
   and the split step.
-* `load_unet`, `load_vae`, `load_text_encoder`, `engine.main` and
-  `cli.train_main` default to "cuda"; the CPU tests pass device="cpu";
+* `load_unet`, `load_vae`, `load_text_encoder`, `engine.main`,
+  `initialize_pipeline`, `inference`, `T2VServer`, LaMa's loaders and the
+  CLI entries default to "cuda"; the CPU tests pass device="cpu";
 * the modules that the card's machine must import without cv2, yaml, PIL
   or tensorboardX do.
 """
@@ -82,11 +83,16 @@ def test_torch_names_copy_agrees_with_the_jax_package():
             ref.torch_key_to_flax(key, "unet")
 
 
+NEW_MODULES = ["ops.quantized_adam", "utils.convert_compvis", "lora.formats",
+               "lora.embeds", "lora.merge", "models.lama", "serving",
+               "serving.server", "pipelines.inference", "utils.tokenizer",
+               "cli"]
+
+
 def test_new_modules_are_walked_and_standalone():
-    proc = _run("assert {'text_to_video_finetuning_tpu_torch.ops."
-                "quantized_adam', 'text_to_video_finetuning_tpu_torch.utils."
-                "convert_compvis', 'text_to_video_finetuning_tpu_torch.lora."
-                "formats'} <= set(names)")
+    names = {f"text_to_video_finetuning_tpu_torch.{m}" for m in NEW_MODULES}
+    proc = _run(f"assert {names!r} <= set(names), sorted({names!r} - "
+                "set(names))")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
@@ -141,19 +147,32 @@ def test_minimal_tokenizer_writer_matches_the_jax_package(tmp_path):
     assert tok("a cat").input_ids[0] == tok.bos_token_id
 
 
-@pytest.mark.parametrize("loader", ["load_unet", "load_vae",
-                                    "load_text_encoder", "engine.main",
-                                    "cli.train_main"])
+@pytest.mark.parametrize("loader", [
+    "load_unet", "load_vae", "load_text_encoder", "engine.main",
+    "cli.train_main", "initialize_pipeline", "inference", "T2VServer",
+    "load_lama", "inpaint_watermark", "cli.inference_main",
+    "cli.serve_main", "cli.bake_lora_main"])
 def test_loaders_default_to_the_card(loader):
     from text_to_video_finetuning_tpu_torch import cli
+    from text_to_video_finetuning_tpu_torch.models import lama
+    from text_to_video_finetuning_tpu_torch.pipelines import inference
+    from text_to_video_finetuning_tpu_torch.serving import T2VServer
     from text_to_video_finetuning_tpu_torch.training import engine
     from text_to_video_finetuning_tpu_torch.utils import checkpoint
 
-    if loader == "cli.train_main":
-        default = cli.train_parser().get_default("device")
+    parsers = {"cli.train_main": cli.train_parser,
+               "cli.inference_main": cli.build_inference_parser,
+               "cli.serve_main": cli.build_serve_parser,
+               "cli.bake_lora_main": cli.build_bake_parser}
+    if loader in parsers:
+        default = parsers[loader]().get_default("device")
     else:
-        fn = (engine.main if loader == "engine.main"
-              else getattr(checkpoint, loader))
+        fn = {"engine.main": engine.main,
+              "initialize_pipeline": inference.initialize_pipeline,
+              "inference": inference.inference, "T2VServer": T2VServer,
+              "load_lama": lama.load_lama,
+              "inpaint_watermark": lama.inpaint_watermark}.get(loader) or \
+            getattr(checkpoint, loader)
         default = inspect.signature(fn).parameters["device"].default
     assert default == "cuda"
 
@@ -172,6 +191,9 @@ import text_to_video_finetuning_tpu_torch.config as config
 import text_to_video_finetuning_tpu_torch.data.video as video
 import text_to_video_finetuning_tpu_torch.training.engine as engine
 import text_to_video_finetuning_tpu_torch.cli as cli
+import text_to_video_finetuning_tpu_torch.serving.server as server
+import text_to_video_finetuning_tpu_torch.models.lama as lama
+import text_to_video_finetuning_tpu_torch.pipelines.inference as inference
 cfg = config.train_config_from_dict({"mixed_precision": "fp16"})
 config.save_config(cfg, sys.argv[1])
 assert open(sys.argv[1]).read().startswith("{")
@@ -191,8 +213,8 @@ sys.exit(1 if loaded else 0)
 
 def test_engine_modules_import_without_cv2_yaml_pil_tensorboardx(tmp_path):
     """The card's machine lacks some of cv2, yaml, PIL and tensorboardX:
-    `config.py`, `data/video.py`, `engine.py` and `cli.py` import without
-    them, `save_config` writes its flow-style YAML, and the engine runs
+    `config.py`, `data/video.py`, `engine.py`, `cli.py`, the server, LaMa
+    and the inference pipeline import without them, `save_config` writes its flow-style YAML, and the engine runs
     without a tensorboard writer."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

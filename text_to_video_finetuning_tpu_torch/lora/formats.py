@@ -26,7 +26,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 
 from ..utils.checkpoint import read_safetensors, write_safetensors
-from .overlay import LoraParams
+from .overlay import LoraParams, lora_shapes
 from .sites import LoraSite
 
 EMBED_FLAG = "<embed>"
@@ -62,12 +62,25 @@ def save_lora_pt(lora_params: LoraParams, sites: Sequence[LoraSite],
 
 def _from_list(weights: Sequence[torch.Tensor], sites: Sequence[LoraSite],
                device: Device) -> Tuple[LoraParams, int]:
-    """[up, down, ...] in site order -> (params, tensors consumed)."""
+    """[up, down, ...] in site order -> (params, tensors consumed).  Each
+    pair must have its site's cloneofsimo shapes at the pair's rank: a
+    file written for other targets raises ValueError here (the JAX loader
+    checks only the count, so there such a file loads onto the wrong
+    sites)."""
     out, idx = {}, 0
     for site in sites:
         if idx + 2 > len(weights):
             break
         up, down = (_to32(w, device) for w in weights[idx:idx + 2])
+        r = down.shape[0]     # any rank: a merge may exceed min(in, out)
+        d1, u1 = lora_shapes(site, 1)
+        want = (r,) + d1[1:], u1[:1] + (r,) + u1[2:]
+        if (tuple(down.shape), tuple(up.shape)) != want:
+            raise ValueError(
+                f"LoRA tensors {idx}-{idx + 1} have shapes "
+                f"{tuple(down.shape)} / {tuple(up.shape)}, site "
+                f"{site.torch_name} takes {want[0]} / {want[1]}; "
+                "target_replace_module mismatch?")
         out[site.torch_name] = {"down": down, "up": up}
         idx += 2
     return out, idx

@@ -23,7 +23,8 @@ from `jax.random`'s, so the tests hand both sides the same values.
 
 `collapse_lora` bakes the LoRA into the base weights of a state dict (the
 save of a pipeline, reference utils/lora.py:781-816, and loralib's merged
-weights).
+weights); `collapse_lora_` does it in place on a model (LoRA at
+inference).
 """
 
 from __future__ import annotations
@@ -180,6 +181,21 @@ def lora_delta(site: LoraSite, down: torch.Tensor, up: torch.Tensor,
     return torch.einsum("or,r...->o...", u, down)
 
 
+def _site_deltas(lora_params: LoraParams, sites: Sequence[LoraSite],
+                 alpha: float, version: str):
+    """(`<site>.weight`, alpha * delta in fp32) for each site with LoRA; none
+    at all when alpha is 0, so a zero scale leaves the weights bit for
+    bit."""
+    if alpha == 0:
+        return
+    for site in sites:
+        entry = lora_params.get(site.torch_name)
+        if entry is not None:
+            yield f"{site.torch_name}.weight", lora_delta(
+                site, entry["down"].detach().float(),
+                entry["up"].detach().float(), version) * alpha
+
+
 @torch.no_grad()
 def collapse_lora(state_dict: Mapping[str, torch.Tensor],
                   lora_params: LoraParams, sites: Sequence[LoraSite],
@@ -189,13 +205,20 @@ def collapse_lora(state_dict: Mapping[str, torch.Tensor],
     the delta computed from the fp32 LoRA and cast to the weight's dtype
     before the add (the JAX `collapse_lora`, overlay.py:222)."""
     out = dict(state_dict)
-    for site in sites:
-        entry = lora_params.get(site.torch_name)
-        if entry is None:
-            continue
-        key = f"{site.torch_name}.weight"
+    for key, delta in _site_deltas(lora_params, sites, alpha, version):
         w = out[key]
-        delta = lora_delta(site, entry["down"].detach().float(),
-                           entry["up"].detach().float(), version) * alpha
         out[key] = w + delta.to(w.device, w.dtype)
     return out
+
+
+@torch.no_grad()
+def collapse_lora_(model: nn.Module, lora_params: LoraParams,
+                   sites: Sequence[LoraSite], alpha: float = 1.0,
+                   version: str = "cloneofsimo") -> nn.Module:
+    """`collapse_lora` in place on `model`'s weights (the same sums), so the
+    fold holds one site's delta at a time beside the model."""
+    weights = dict(model.named_parameters())
+    for key, delta in _site_deltas(lora_params, sites, alpha, version):
+        w = weights[key]
+        w.add_(delta.to(w.device, w.dtype))
+    return model

@@ -6,6 +6,11 @@ runs without ftfy: BERT-style basic cleanup (control characters dropped,
 CJK characters spaced, NFC, whitespace split, lower case), the CLIP
 pre-tokenisation pattern, byte-to-unicode mapping and BPE merges.
 
+Added tokens (`add_tokens`, textual inversion's `<sks>`) are matched as
+whole strings before any cleanup or BPE, as transformers matches its added
+tokens; `save_pretrained` writes transformers' layout, `added_tokens.json`
+included, and `from_pretrained` reads it back.
+
 The pattern's Unicode classes are written with the standard `re` module:
 letters as `[^\\W\\d_]`, numbers as `\\d`.  They agree with the `regex`
 module's \\p{L} / \\p{N} on ASCII and common scripts; a few rare numeric
@@ -79,13 +84,18 @@ class CLIPTokenizer:
                  unk_token: str = "<|endoftext|>",
                  pad_token: str = "<|endoftext|>"):
         self.encoder = vocab
-        self.bpe_ranks = {tuple(m): i for i, m in enumerate(merges)}
+        self.merges = [tuple(m) for m in merges]
+        self.bpe_ranks = {m: i for i, m in enumerate(self.merges)}
         self.byte_encoder = bytes_to_unicode()
         self.model_max_length = model_max_length
         self.bos_token, self.eos_token = bos_token, eos_token
         self.unk_token, self.pad_token = unk_token, pad_token
         self._special = {bos_token, eos_token, unk_token, pad_token}
+        # token -> id of the tokens added after loading (transformers'
+        # `added_tokens_encoder`, special tokens aside)
+        self.added_tokens_encoder: Dict[str, int] = {}
         self._cache: Dict[str, List[str]] = {}
+        self._split = self._split_pattern()
 
     @classmethod
     def from_pretrained(cls, tokenizer_dir: str) -> "CLIPTokenizer":
@@ -111,7 +121,65 @@ class CLIPTokenizer:
                     kwargs[key] = tok
             if cfg.get("model_max_length"):
                 kwargs["model_max_length"] = int(cfg["model_max_length"])
-        return cls(vocab, merges, **kwargs)
+        tokenizer = cls(vocab, merges, **kwargs)
+        added = os.path.join(tokenizer_dir, "added_tokens.json")
+        if os.path.exists(added):
+            with open(added, encoding="utf-8") as f:
+                tokenizer.added_tokens_encoder.update(
+                    (tok, int(idx)) for tok, idx in json.load(f).items())
+            tokenizer._split = tokenizer._split_pattern()
+        return tokenizer
+
+    def save_pretrained(self, tokenizer_dir: str):
+        """Write vocab.json, merges.txt, added_tokens.json (the added tokens
+        past the vocabulary), tokenizer_config.json and
+        special_tokens_map.json, in transformers' layout."""
+        os.makedirs(tokenizer_dir, exist_ok=True)
+
+        def dump(obj, name):
+            with open(os.path.join(tokenizer_dir, name), "w",
+                      encoding="utf-8") as f:
+                json.dump(obj, f, indent=2, sort_keys=True,
+                          ensure_ascii=False)
+                f.write("\n")
+        dump(self.encoder, "vocab.json")
+        with open(os.path.join(tokenizer_dir, "merges.txt"), "w",
+                  encoding="utf-8") as f:
+            f.write("#version: 0.2\n")
+            f.writelines(" ".join(m) + "\n" for m in self.merges)
+        added = {t: i for t, i in self.added_tokens_encoder.items()
+                 if i >= len(self.encoder)}
+        if added:
+            dump(added, "added_tokens.json")
+        specials = {"bos_token": self.bos_token, "eos_token": self.eos_token,
+                    "unk_token": self.unk_token, "pad_token": self.pad_token}
+        dump(specials, "special_tokens_map.json")
+        dump({"model_max_length": self.model_max_length, **specials,
+              "tokenizer_class": "CLIPTokenizer"}, "tokenizer_config.json")
+
+    def __len__(self) -> int:
+        return len(self.encoder.keys() | self.added_tokens_encoder.keys())
+
+    def add_tokens(self, tokens: Union[str, Sequence[str]]) -> int:
+        """Add tokens that are matched whole before BPE; returns how many
+        got a new id (0 for a token already in the vocabulary, which is
+        then matched whole as well)."""
+        added = 0
+        for tok in [tokens] if isinstance(tokens, str) else tokens:
+            if not tok or tok in self.added_tokens_encoder:
+                continue
+            if tok in self.encoder:
+                self.added_tokens_encoder[tok] = self.encoder[tok]
+            else:
+                self.added_tokens_encoder[tok] = len(self)
+                added += 1
+        self._split = self._split_pattern()
+        return added
+
+    def convert_tokens_to_ids(self, tokens: Union[str, Sequence[str]]):
+        if isinstance(tokens, str):
+            return self._id(tokens)
+        return [self._id(t) for t in tokens]
 
     @property
     def bos_token_id(self) -> int:
@@ -126,7 +194,16 @@ class CLIPTokenizer:
         return self._id(self.pad_token)
 
     def _id(self, token: str) -> int:
+        if token in self.added_tokens_encoder:
+            return self.added_tokens_encoder[token]
         return self.encoder.get(token, self.encoder.get(self.unk_token))
+
+    def _split_pattern(self) -> "re.Pattern":
+        """The special and added tokens, longest first, as one capturing
+        alternation (a leftmost, longest match, as transformers' trie)."""
+        whole = sorted(self._special | self.added_tokens_encoder.keys(),
+                       key=lambda t: (-len(t), t))
+        return re.compile("(" + "|".join(map(re.escape, whole)) + ")")
 
     def _bpe(self, token: str) -> List[str]:
         if token in self._cache:
@@ -154,11 +231,9 @@ class CLIPTokenizer:
 
     def tokenize(self, text: str) -> List[str]:
         tokens: List[str] = []
-        # special tokens are matched whole before any cleanup
-        for piece in re.split(
-                "(" + "|".join(map(re.escape, sorted(self._special))) + ")",
-                text):
-            if piece in self._special:
+        # special and added tokens are matched whole before any cleanup
+        for piece in self._split.split(text):
+            if piece in self._special or piece in self.added_tokens_encoder:
                 tokens.append(piece)
                 continue
             for tok in _PAT.findall(_basic_clean(piece)):
