@@ -7,12 +7,14 @@ batching HTTP server), takes LoRA training steps through its training path in fi
 configurations and trains configs/v2/train_config.yaml's full finetune and
 the three LoRA YAMLs (lora_training_config.yaml, stable_lora_config.yaml,
 low_vram_config_example.yaml) through the training engine (with
-checkpoints, resumes and reloads), all at the full width of the ms-1.7b
+checkpoints, resumes and reloads), and lora_training_config.yaml on two
+ranks under torchrun (phase 20), all at the full width of the ms-1.7b
 model (random weights from a seed).
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure (non-zero exit, no result line):
+(`chip_smoke.py --rank-worker <spec>` is phase 20's rank, which torchrun
+starts.)  Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA device must be present; prints its name / power limit;
   2. build every kernel from csrc/ with nvcc (sm_90a), one process each,
      and print ptxas's registers, spills and wgmma serialization of each;
@@ -116,7 +118,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (d) `inference_main` writes one 16-frame mp4; (e) LaMa
      (`inpaint_watermark`, random big-lama weights from SEED) on request
      (a)'s frames on the card against the CPU.  Every K1 launch of (a)-(c)
-     on `sm90`, each load's seconds and peak memory printed.
+     on `sm90`, each load's seconds and peak memory printed;
+ 20. multi-device training: lora_training_config.yaml's keys (DIST_RUNS,
+     the models' dropout off) through t2v-train-torch (`cli.train_main`)
+     on phase 4's pipeline and phase 16's cached latents (the sharded
+     load of a pre-built cache), DIST_STEPS steps with checkpoint-2 each:
+     (c) one process at train_batch_size 2, in a one-rank NCCL group, the
+     yardstick; then (a) mesh_dp=2 at train_batch_size 1 (global batch 2)
+     and (b) mesh_dp=1 mesh_fsdp=2 at 2, each one `python -m
+     torch.distributed.run` launch of two ranks (this file,
+     `--rank-worker`).  Two or more cards: a card per rank over NCCL; one
+     card: both ranks on cuda:0 over gloo.  (a) and (b) against (c): step
+     1's all-reduced gradient leaf by leaf within GRAD_BF16_RTOL, the
+     losses and gradient norms within LOSS_BF16_RTOL, the trainable
+     tensors within DIST_PARAM_RTOL of (c)'s update with at most
+     DIST_FLIP_MAX of the values moved the other way; every rank's train
+     state equal (digest), only rank 0 opening files for writing,
+     checkpoint-2 and the LoRA files in place, (b)'s pipelines written
+     from rank 0's host copy of the sharded weights, (b)'s ranks holding
+     about half of the frozen bytes, and on every rank of every run the
+     K1-K3 launches at the derived count, all on `sm90`; each rank's step
+     median, gradient all-reduce time and bytes, peak memory and frozen
+     bytes printed.  (The resume on two ranks is held bit for bit on the
+     CPU, tests/test_torch_engine_dist.py: on the card a third run of two
+     ranks took the phase past its time.)
 The last two lines are the kernels record and the device record (JSON).
 K1, K2 and K3 run on two routes (ops/flash_attention.py::flash_route):
 `sm90` (csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dkv_sm90.cu,
@@ -340,6 +365,49 @@ YAML_PHASES = {
 # ||split - fused|| against ||fused - initial||
 LOSS_BF16_RTOL = 1e-2
 SPLIT_PARAM_RTOL = 1e-2
+# phase 20: lora_training_config.yaml on two ranks.  Each run: (ranks,
+# what it changes beside phase 16's overrides).  Every run turns the
+# models' dropout off (eval_train): the temporal convs' dropout draws from
+# each rank's own generator (seed + rank), so with it on a two-rank run is
+# another sample than one process, not the same run rounded otherwise.
+# The global batch is 2 in every run: train_batch_size x mesh_dp rows
+# split over every rank; (a) and (c) write the LoRA files and train states
+# but no pipeline, (b) writes its pipelines from rank 0's host copy of the
+# frozen weights.  Two steps each (over gloo on one card the fsdp gathers
+# cost ~17 s a step)
+DIST_STEPS, DIST_CKPT = 2, 2
+_DIST = {"eval_train": True}
+DIST_RUNS = {
+    "a_dp": (2, dict(_DIST, mesh_dp=2, train_batch_size=1,
+                     save_pretrained_model=False)),
+    "b_fsdp": (2, dict(_DIST, mesh_dp=1, mesh_fsdp=2, train_batch_size=2)),
+    "c_one": (1, dict(_DIST, train_batch_size=2,
+                      save_pretrained_model=False)),
+}
+# (a) and (b) against (c):
+# * step 1's all-reduced gradient, before the clip and the optimizer:
+#   ||g - g_c|| within LOSS_BF16_RTOL of ||g_c|| over the whole tree and
+#   within GRAD_BF16_RTOL leaf by leaf.  The rows run at batch 1 there and
+#   at batch 2 in (c), so the bf16 products round otherwise.  The H100 run
+#   measured 3.6e-3 over the tree; leaf by leaf up to 3.15e-2, in 22 of the
+#   614 leaves with a gradient above 2e-2 (the bound first chosen, five
+#   bf16 units); the worst, a temporal attention of the mid block, has a
+#   gradient norm of 1.8e-4 against the tree's 5.35, so the same rounding
+#   weighs more there.  A planted fault (every rank keeping the first rank's rows of
+#   the draws) measured 0.21 over the tree;
+# * the losses and the gradient norms within LOSS_BF16_RTOL;
+# * the trainable tensors after the last step within DIST_PARAM_RTOL of
+#   (c)'s update, with at most DIST_FLIP_MAX of the values moved the other
+#   way.  Adam's first step moves every value by lr x g / (|g| + eps),
+#   about lr x sign(g) whatever |g|, so a value whose gradient is near zero
+#   moves by +-lr as the rounding falls: the trainable tensors measure the
+#   gradients' signs, and SPLIT_PARAM_RTOL, the split step's bound (same
+#   batch, same rows), is printed beside it and not met.  The H100 run
+#   measured 3.5e-2 of the update against (c) and 2.0e-3 of the values of
+#   another sign.
+GRAD_BF16_RTOL = 5e-2
+DIST_PARAM_RTOL = 5e-2
+DIST_FLIP_MAX = 1e-2
 COMPVIS_PREFIXES = ("input_blocks.", "middle_block.", "output_blocks.",
                     "time_embed.", "out.", "resblocks.",
                     "text_model.embeddings.")
@@ -2342,7 +2410,428 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
+def dist_config(label, pipeline_dir, output_dir, json_path, cache_dir,
+                **extra):
+    """Phase 16's config (`yaml_config("lora_yaml", ...)`) at DIST_STEPS
+    steps with checkpoint-DIST_CKPT, and run `label`'s changes."""
+    cfg = yaml_config("lora_yaml", pipeline_dir, output_dir, json_path,
+                      cache_dir, max_train_steps=DIST_STEPS,
+                      checkpointing_steps=DIST_CKPT)
+    cfg.update(DIST_RUNS[label][1], **extra)
+    return cfg
+
+
+def state_digest(snap) -> str:
+    """sha256 over a train-state snapshot (trainable tensors, optimizer
+    state, counters, the step generator), without the rank's own default
+    generator."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(prefix, tree):
+        if isinstance(tree, torch.Tensor):
+            h.update(prefix.encode())
+            h.update(tree.detach().reshape(-1).contiguous().view(
+                torch.uint8).numpy().tobytes())
+        elif isinstance(tree, dict):
+            for k in sorted(tree):
+                if k not in ("device_rng", "device_rng_by_rank"):
+                    walk(f"{prefix}/{k}", tree[k])
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(f"{prefix}/{i}", v)
+        else:
+            h.update(f"{prefix}={tree!r}".encode())
+    walk("", snap)
+    return h.hexdigest()
+
+
+def train_run(argv, watch):
+    """`cli.train_main(argv)` (t2v-train-torch) with a `RunRecord`, the
+    K1-K5 launches counted around it (zeroed just before, read just
+    after), the files it opens for writing under `watch` counted, and step
+    1's all-reduced gradient kept.  Returns (the record, that gradient as
+    {path: host tensor}, what the run measured)."""
+    import builtins
+    from text_to_video_finetuning_tpu_torch import cli
+    from text_to_video_finetuning_tpu_torch.training import engine
+
+    writes, real_open = [], builtins.open
+    watch = os.path.abspath(watch)
+
+    def watched_open(file, mode="r", *args, **kwargs):
+        if (isinstance(file, (str, os.PathLike))
+                and os.path.abspath(file).startswith(watch)
+                and any(c in mode for c in "wax+")):
+            writes.append(os.fspath(file))
+        return real_open(file, mode, *args, **kwargs)
+    grads, real_reduce = {}, engine.all_reduce_grads
+
+    def first_reduce(trainable, *args, **kwargs):
+        out = real_reduce(trainable, *args, **kwargs)
+        if not grads:
+            grads.update({k: t.grad.detach().float().cpu()
+                          for k, t in flat_tensors(trainable).items()})
+        return out
+    record = engine.RunRecord()
+    torch.cuda.empty_cache()
+    builtins.open, engine.all_reduce_grads = watched_open, first_reduce
+    try:
+        zero_counts()                               # the path starts here
+        t0 = time.perf_counter()
+        out = cli.train_main(argv, record=record)
+        seconds = time.perf_counter() - t0
+        launches, by_batch = read_counts(), read_batch_counts()
+    finally:
+        builtins.open, engine.all_reduce_grads = real_open, real_reduce
+    return record, grads, {
+        "rank": record.rank, "world": record.world, "out": out,
+        "seconds": seconds, "backend": record.backend,
+        "steps": [(t, loss.hex()) for t, loss in record.steps],
+        "grad_norms": record.grad_norms,
+        "syncs": record.syncs, "peaks": record.peaks,
+        "frozen_bytes": record.frozen_bytes, "launches": launches,
+        "by_batch": by_batch, "writes": len(writes),
+        "digest": state_digest(record.final)}
+
+
+def rank_worker(spec_path: str) -> int:
+    """A rank of one of phase 20's two-rank runs, started by torchrun: the
+    run goes through `train_run` (the engine starts and leaves the process
+    group) and writes what it measured to `<dir>/<label>.rank<r>.json`;
+    rank 0 also saves the final trainable tensors and step 1's gradient."""
+    import faulthandler
+    faulthandler.enable()           # a crash in a rank prints its stack
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    label = spec["label"]
+    record, grads, result = train_run(
+        ["--config", spec["config"], "--device", spec["device"],
+         "--backend", spec["backend"]], spec["watch"])
+    if record.rank == 0:
+        torch.save(record.final["trainable"],
+                   os.path.join(spec["dir"], f"{label}.pt"))
+        torch.save(grads, os.path.join(spec["dir"], f"{label}.grads.pt"))
+    with open(os.path.join(spec["dir"], f"{label}.rank{record.rank}.json"),
+              "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def torchrun(nproc, spec, timeout=900):
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    nproc chip_smoke.py --rank-worker <spec>`, one run; returns each
+    rank's record, or fails with the launcher's output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec_path = os.path.join(spec["dir"], f"{spec['label']}.spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={nproc}", os.path.abspath(__file__),
+             "--rank-worker", spec_path], capture_output=True, text=True,
+            env=env, timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        fail(f"torchrun outlived {timeout} s: {(e.stderr or '')[-4000:]}")
+    if proc.returncode != 0:
+        fail(f"torchrun exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-6000:]}")
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(spec["dir"],
+                               f"{spec['label']}.rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"[{spec['label']}] torchrun, {nproc} ranks: "
+          f"{time.perf_counter() - t0:.1f} s (launch, then the run's load, "
+          f"steps and saves: {ranks[0]['seconds']:.1f} s)")
+    return ranks
+
+
+def one_rank_nccl(cfg_path, watch):
+    """(c): one process, this one, in a one-rank NCCL group that the engine
+    starts from torchrun's variables (a free localhost port) and leaves at
+    its end."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        out = train_run(["--config", cfg_path, "--device", "cuda"], watch)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"[c_one] one process, one-rank NCCL group: "
+          f"{time.perf_counter() - t0:.1f} s (load, steps, saves)")
+    return out
+
+
+def dist_phase(pipeline_dir, root):
+    """Phase 20: lora_training_config.yaml (the hybrid step, UNet and text
+    LoRA of rank 32) on phase 4's pipeline and phase 16's cached latents (a
+    pre-built `cached_latent_dir`: the sharded load) through t2v-train-torch
+    (`cli.train_main`), the models' dropout off: (c) one process at
+    train_batch_size 2, the yardstick, here, in a one-rank NCCL group; then
+    (a) mesh_dp=2 at train_batch_size 1 and (b) mesh_dp=1 mesh_fsdp=2 at 2,
+    each a `python -m torch.distributed.run` launch of two ranks.  With two
+    or more cards each rank has its own, over NCCL; with one card NCCL
+    refuses two ranks on it, so they share cuda:0 over gloo, and (c) runs
+    NCCL on the card either way.  Checks: `dist_report` on every run,
+    `dist_checks` across them.  Returns the launches of each run summed
+    over its ranks."""
+    from text_to_video_finetuning_tpu_torch.config import (
+        save_config, train_config_from_dict)
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        device, backend = "cuda", "nccl"
+        print(f"[dist] {cards} cards: one card per rank, NCCL")
+    else:
+        device, backend = "cuda:0", "gloo"
+        print("[dist] one card: NCCL refuses two ranks on one card, so the "
+              "two ranks share cuda:0 over gloo (all-reduce and all-gather "
+              "staged through the host); (c) runs as one rank over NCCL")
+    cache_dir = f"{root}/lora_latents"
+    json_path = f"{root}/lora_latents.json"
+    runs = f"{root}/dist_runs"
+    os.makedirs(runs, exist_ok=True)
+    keys = YAML_PHASES["lora_yaml"][0]
+    configs, paths = {}, {}
+    for label in DIST_RUNS:
+        configs[label] = dist_config(label, pipeline_dir, f"{runs}/{label}",
+                                     json_path, cache_dir)
+        paths[label] = f"{runs}/{label}.yaml"
+        save_config(train_config_from_dict(configs[label]), paths[label])
+    try:
+        c_record, c_grads, c_result = one_rank_nccl(paths["c_one"],
+                                                    f"{runs}/c_one")
+        results = {"c_one": [c_result]}
+        for label in ("a_dp", "b_fsdp"):
+            torch.cuda.empty_cache()
+            results[label] = torchrun(DIST_RUNS[label][0], {
+                "device": device, "backend": backend, "dir": runs,
+                "label": label, "config": paths[label],
+                "watch": f"{runs}/{label}"})
+        for label in DIST_RUNS:
+            dist_report(label, configs[label], results[label], keys,
+                        backend if DIST_RUNS[label][0] > 1 else "nccl")
+        dist_checks(results, runs, c_record, c_grads)
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    return {label: {k: sum(r["launches"][k] for r in ranks)
+                    for k in ranks[0]["launches"]}
+            for label, ranks in results.items()}
+
+
+def dist_report(label, cfg, ranks, keys, backend):
+    """Print a run's numbers per rank and hold its launches: K1-K3 at the
+    derived count per step and by batch (the rank's rows), all on `sm90`,
+    no K4/K5 (fused_groupnorm is off); every loss finite; every rank's
+    logged losses equal (the all-reduced mean) and its state too; each
+    rank in a process group of `backend` over the run's ranks."""
+    steps = cfg["max_train_steps"]
+    world = len(ranks)
+    dp = cfg["mesh_dp"] if cfg["mesh_dp"] > 0 else world
+    local_keys = dict(keys, train_batch_size=cfg["train_batch_size"] * dp
+                      // world)
+    expected = engine_expected(local_keys)
+    want_batch = expected_batches(local_keys, expected, steps)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    for r in ranks:
+        losses = [float.fromhex(x) for _, x in r["steps"]]
+        times = sorted(t for t, _ in r["steps"][1:]) or [float("nan")]
+        # step 1 waits for its warm-up, and its reduce for the copy of
+        # the gradient that `train_run` keeps: both medians leave it out
+        syncs = sorted(t for t, _ in r["syncs"][1:]) or [float("nan")]
+        nbytes = sorted({n for _, n in r["syncs"]})
+        peak = max((n for _, n in r["peaks"]), default=0) / 2**30
+        print(f"[{label}] rank {r['rank']}/{r['world']} {r['backend']} "
+              f"({smi}): losses {[f'{x:.6f}' for x in losses]}, step "
+              f"median {times[len(times) // 2]:.4f} s "
+              f"({[round(t, 4) for t, _ in r['steps']]}), all-reduce median "
+              f"{syncs[len(syncs) // 2] * 1e3:.1f} ms of {nbytes} bytes a "
+              f"step, peak {peak:.2f} GiB, frozen bytes held "
+              f"{r['frozen_bytes'] / 2**30:.3f} GiB, files opened for "
+              f"writing {r['writes']}")
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+            fail(f"[{label}] rank {r['rank']}: losses {losses}, expected "
+                 f"{steps} finite")
+        launches = r["launches"]
+        got = {k: launches[k] for k in ("K1", "K2", "K3", "K4", "K5")}
+        want = {k: steps * expected[k] for k in ("K1", "K2", "K3")}
+        want.update(K4=0, K5=0)
+        by_batch = {k: {int(b): n for b, n in v.items()}
+                    for k, v in r["by_batch"].items()}
+        if got != want or by_batch != want_batch:
+            fail(f"[{label}] rank {r['rank']}: launches {got} by batch "
+                 f"{by_batch}, expected {want} by batch {want_batch}")
+        if any(launches[f"{k}_wmma"] or launches[f"{k}_sm90"] != got[k]
+               for k in ("K1", "K2", "K3")):
+            fail(f"[{label}] rank {r['rank']}: K1-K3 not all on sm90: "
+                 f"{launches}")
+        if len(r["syncs"]) != steps:
+            fail(f"[{label}] rank {r['rank']}: {len(r['syncs'])} gradient "
+                 f"all-reduces over {steps} steps")
+    print(f"[{label}] launches per rank {want} over {steps} steps, by "
+          f"batch {want_batch}, all on sm90")
+    if len({tuple(x for _, x in r["steps"]) for r in ranks}) != 1:
+        fail(f"[{label}] the ranks logged different losses")
+    if len({r["digest"] for r in ranks}) != 1:
+        fail(f"[{label}] the ranks' train states differ: "
+             f"{[r['digest'][:12] for r in ranks]}")
+    if [r["backend"] for r in ranks] != [backend] * world or \
+            [r["world"] for r in ranks] != [world] * world:
+        fail(f"[{label}] process groups {[r['backend'] for r in ranks]} of "
+             f"{[r['world'] for r in ranks]} ranks, expected {backend} of "
+             f"{world}")
+
+
+def flat_tensors(tree, prefix=""):
+    """{path: tensor} over a tree of dicts."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(flat_tensors(v, f"{prefix}/{k}"))
+    return out
+
+
+def update_agreement(initial, final, ref_final):
+    """(share of values whose update (final - initial) takes another sign
+    than the reference's, ||final - ref_final|| over the other values)."""
+    a, b, x0 = (flat_tensors(t) for t in (final, ref_final, initial))
+    flips, total, rest = 0, 0, 0.0
+    for k in x0:
+        da, db = a[k].double() - x0[k].double(), b[k].double() - x0[k].double()
+        same = torch.sign(da) == torch.sign(db)
+        flips += int((~same).sum())
+        total += same.numel()
+        rest += float(((da - db)[same] ** 2).sum())
+    return flips / total, math.sqrt(rest)
+
+
+def grad_agreement(grads, ref):
+    """Per leaf of step 1's gradient: (path, ||g - ref||, ||ref||)."""
+    if sorted(grads) != sorted(ref):
+        fail(f"gradient leaves {sorted(grads)[:3]} vs {sorted(ref)[:3]}")
+    return [(k, float((grads[k].double() - ref[k].double()).norm()),
+             float(ref[k].double().norm())) for k in sorted(ref)]
+
+
+def dist_checks(results, runs, c_record, c_grads):
+    """Phase 20's comparisons across runs (see DIST_RUNS): (a) and (b)
+    against (c), and (a) against (b), reported; the files.  Every
+    comparison is printed before the phase fails on the misses."""
+    a, b, c = (results[k] for k in ("a_dp", "b_fsdp", "c_one"))
+    initial = c_record.initial["trainable"]
+    states = {"c_one": c_record.final["trainable"],
+              "a_dp": torch.load(f"{runs}/a_dp.pt"),
+              "b_fsdp": torch.load(f"{runs}/b_fsdp.pt")}
+    grads = {"c_one": c_grads, "a_dp": torch.load(f"{runs}/a_dp.grads.pt"),
+             "b_fsdp": torch.load(f"{runs}/b_fsdp.grads.pt")}
+    misses = []
+    for x, y in (("a_dp", "c_one"), ("b_fsdp", "c_one"), ("a_dp", "b_fsdp")):
+        leaves = grad_agreement(grads[x], grads[y])
+        off = math.sqrt(sum(o * o for _, o, _ in leaves))
+        ref = math.sqrt(sum(n * n for _, _, n in leaves))
+        ratios = sorted((o / n if n else (math.inf if o else 0.0), k)
+                        for k, o, n in leaves if n or o)
+        over = [k for k, o, n in leaves if o > GRAD_BF16_RTOL * n]
+        by_group = {}
+        for k, o, n in leaves:
+            g = by_group.setdefault(k.split("/")[1], [0.0, 0.0, 0, 0])
+            g[0] += o * o
+            g[1] += n * n
+            g[2] += o == 0.0
+            g[3] += 1
+        print(f"[dist] step 1's all-reduced gradient, {x} against {y}: "
+              f"||g - g_ref|| / ||g_ref|| {off / ref:.3e} over "
+              f"{len(leaves)} leaves; by group "
+              + ", ".join(f"{grp} {math.sqrt(o2 / n2) if n2 else 0:.3e} "
+                          f"({eq} of {cnt} leaves bit for bit)"
+                          for grp, (o2, n2, eq, cnt) in by_group.items())
+              + f"; leaves with a gradient {len(ratios)}, relative to "
+              f"{y}'s from {ratios[0][0]:.3e} to {ratios[-1][0]:.3e} "
+              f"({ratios[-1][1]}), median {ratios[len(ratios) // 2][0]:.3e},"
+              f" {len(over)} past GRAD_BF16_RTOL {GRAD_BF16_RTOL}")
+        if y == "c_one" and (over or off > LOSS_BF16_RTOL * ref):
+            misses.append(f"[{x}] step 1's gradient {off / ref:.3e} of "
+                          f"(c)'s, {len(over)} leaves past GRAD_BF16_RTOL, "
+                          f"e.g. {over[:3]}")
+    want = [float.fromhex(x) for _, x in c[0]["steps"]]
+    want_norms = c[0]["grad_norms"]
+    for label, ranks in (("a_dp", a), ("b_fsdp", b)):
+        got = [float.fromhex(x) for _, x in ranks[0]["steps"]]
+        norms = ranks[0]["grad_norms"]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        rel_norms = [abs(g - w) / abs(w) for g, w in zip(norms, want_norms)]
+        print(f"[{label}] against one process at the same global batch: "
+              f"losses {[f'{x:.6f}' for x in got]} vs "
+              f"{[f'{x:.6f}' for x in want]} (relative "
+              f"{[f'{x:.2e}' for x in rel]}), gradient norms "
+              f"{[f'{x:.5f}' for x in norms]} vs "
+              f"{[f'{x:.5f}' for x in want_norms]} (relative "
+              f"{[f'{x:.2e}' for x in rel_norms]})")
+        if max(rel + rel_norms) > LOSS_BF16_RTOL:
+            misses.append(f"[{label}] losses {got} or gradient norms {norms}"
+                          f" differ from one process's {want}, {want_norms}")
+    for x, y in (("a_dp", "c_one"), ("b_fsdp", "c_one"), ("a_dp", "b_fsdp")):
+        update = tree_distance(states[y], initial)
+        off = tree_distance(states[x], states[y])
+        flips, rest = update_agreement(initial, states[x], states[y])
+        print(f"[dist] trainable after step {DIST_STEPS}: ||{x} - {y}|| "
+              f"{off:.6e} against ||{y} - initial|| {update:.6e}: "
+              f"{off / update:.3e} (DIST_PARAM_RTOL {DIST_PARAM_RTOL}, "
+              f"SPLIT_PARAM_RTOL {SPLIT_PARAM_RTOL}); updates of another "
+              f"sign {flips:.3e} of the values, the rest {rest / update:.3e}")
+        if not update > 0 or off > DIST_PARAM_RTOL * update or \
+                flips > DIST_FLIP_MAX:
+            misses.append(f"[{x}] trainable tensors {off:.3e} from {y}'s "
+                          f"against an update of {update:.3e}, {flips:.3e} "
+                          "of the updates of another sign")
+    # rank 0 alone writes: the LoRA files, the checkpoint and (b)'s
+    # pipelines, from its host copy of the sharded frozen weights
+    ckpt = f"checkpoint-{DIST_CKPT}"
+    for label, ranks in (("a_dp", a), ("b_fsdp", b)):
+        run = ranks[0]["out"]
+        for where in (os.path.join(run, ckpt), run):
+            names = lora_files(where)
+            if names != [f"{DIST_STEPS}_text_encoder.pt",
+                         f"{DIST_STEPS}_unet.pt"]:
+                misses.append(f"[{label}] {where}/lora holds {names}")
+        if ranks[0]["writes"] == 0 or any(r["writes"] for r in ranks[1:]):
+            misses.append(f"[{label}] files opened for writing by rank "
+                          f"{[r['writes'] for r in ranks]}")
+    held = [r["frozen_bytes"] for r in b]
+    print(f"[b_fsdp] frozen bytes held per rank {held} against "
+          f"{a[0]['frozen_bytes']} unsharded")
+    if not all(n < 0.75 * a[0]["frozen_bytes"] for n in held):
+        misses.append("[b_fsdp] the frozen models are not sharded")
+    if misses:
+        fail("phase 20: " + "; ".join(misses))
+    check_pipeline_dir(os.path.join(b[0]["out"], ckpt), f"[b_fsdp] {ckpt}",
+                       True)
+    check_pipeline_dir(b[0]["out"], "[b_fsdp] final pipeline", False)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(sys.argv[2])
     t_start = time.perf_counter()
 
     def lap(phase):
@@ -2467,8 +2956,14 @@ def main() -> int:
     # 19. inference and serving on phase 4's pipeline: LoRA at inference,
     # the bake, the HTTP server, the inference CLI, LaMa
     by_path.update(inference_phase(pipeline_dir, workdir.name, video_a))
-    workdir.cleanup()
     torch.cuda.empty_cache()
+
+    lap("20")
+    # 20. lora_training_config.yaml on two ranks under torchrun
+    dist = dist_phase(pipeline_dir, workdir.name)
+    by_path["dp_lora"], by_path["fsdp_lora"] = dist["a_dp"], dist["b_fsdp"]
+    by_path["one_rank_nccl_lora"] = dist["c_one"]
+    workdir.cleanup()
 
     lap("records")
 

@@ -5,7 +5,7 @@
   except the listed differences (`-d/--device` defaults to "cuda"; the
   serve parser has no `--no-trim-to-warm` and, like bake, a `--device`);
 * a non-empty `--mesh` raises NotImplementedError naming ROADMAP Queue 1
-  item 5, before any model is loaded;
+  item 5b, before any model is loaded;
 * `-x` / `-S` select the `auto` attention backend, as in JAX;
 * `inference_main --device cpu` on the tiny pipeline writes one mp4 of the
   requested frames;
@@ -90,7 +90,7 @@ def test_mesh_raises_naming_queue1_item5(main):
     argv = {"inference": ["-m", "/nonexistent", "-p", "x"],
             "serve": ["-m", "/nonexistent", "--no-warmup"]}[main]
     fn = cli.inference_main if main == "inference" else cli.serve_main
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
         fn(argv + ["--mesh", "dp=2"])
 
 

@@ -116,6 +116,32 @@ def test_chip_smoke_holds_the_lora_yamls(phase, name):
     assert parsed.validation_steps > parsed.max_train_steps
 
 
+@pytest.mark.parametrize("label", ["a_dp", "b_fsdp", "c_one"])
+def test_chip_smoke_phase_20_changes_only_what_it_lists(label):
+    """Phase 20's runs are phase 16's config with the step counts and each
+    run's listed changes; the engine parses each, and the global batch
+    (train_batch_size x dp) splits over the run's ranks."""
+    from text_to_video_finetuning_tpu_torch.parallel import (MeshConfig,
+                                                             mesh_shape)
+    smoke = _smoke()
+    ranks, changes = smoke["DIST_RUNS"][label]
+    base = smoke["yaml_config"]("lora_yaml", "/p", "/o", "/j.json", "/c")
+    cfg = smoke["dist_config"](label, "/p", "/o", "/j.json", "/c")
+    changed = {k for k in set(base) | set(cfg) if base.get(k) != cfg.get(k)}
+    assert changed <= {"max_train_steps", "checkpointing_steps"} | set(
+        changes)
+    assert all(cfg[k] == v for k, v in changes.items())
+    assert "max_train_steps" in changed and "eval_train" in changed
+    assert cfg["eval_train"] and cfg["checkpointing_steps"] == \
+        smoke["DIST_CKPT"]
+    parsed = pconfig.train_config_from_dict(cfg)
+    assert parsed.extra_kwargs == {}
+    shape = mesh_shape(MeshConfig(dp=parsed.mesh_dp, fsdp=parsed.mesh_fsdp),
+                       ranks)
+    assert parsed.train_batch_size * shape["dp"] == 2      # global batch
+    assert 2 % ranks == 0
+
+
 def test_chip_smoke_overrides_only_what_it_lists():
     smoke = _smoke()
     base = smoke["TRAIN_CONFIG"]

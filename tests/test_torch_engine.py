@@ -13,9 +13,10 @@ interop check) and synthetic mp4.
   checkpoints and from each run's `engine.RunRecord`;
 * `checkpoints_total_limit`; the SIGTERM checkpoint; a non-finite
   micro-batch dropped by `skip_nonfinite_updates`;
-* each option not ported yet (the mesh, CLIP-score validation) raises
-  `NotImplementedError` naming its ROADMAP item, before the run directory
-  exists.
+* each option not ported yet (the tp and sp mesh axes, CLIP-score
+  validation) raises `NotImplementedError` naming its ROADMAP item, and a
+  dp / fsdp mesh larger than the one process raises `ValueError`, before
+  the run directory exists.
 """
 
 import glob
@@ -311,10 +312,10 @@ def test_nonfinite_micro_batch_is_skipped(tiny_pipeline_dir, tiny_video,
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(mesh_fsdp=2), 5),
-    (dict(mesh_dp=4), 5),
-    (dict(validation_data=dict(compute_clip_score=True)), 6),
-], ids=["mesh_fsdp", "mesh_dp", "clip_score"])
+    (dict(mesh_tp=2), "5b"),
+    (dict(mesh_sp=2), "5b"),
+    (dict(validation_data=dict(compute_clip_score=True)), "6"),
+], ids=["mesh_tp", "mesh_sp", "clip_score"])
 def test_unported_options_are_refused_before_the_run(tiny_pipeline_dir,
                                                      tiny_video, tmp_path,
                                                      option, item):
@@ -323,6 +324,18 @@ def test_unported_options_are_refused_before_the_run(tiny_pipeline_dir,
         engine.main(device="cpu", **minimal_config(
             tiny_pipeline_dir, tiny_video, str(tmp_path / "o"), **option))
     assert not os.path.exists(tmp_path / "o")    # refused before it loads
+
+
+@pytest.mark.parametrize("option,need", [
+    (dict(mesh_fsdp=2), "1 devices not divisible by fsdp\\*tp\\*sp=2"),
+    (dict(mesh_dp=4), "needs 4 devices, have 1"),
+], ids=["mesh_fsdp", "mesh_dp"])
+def test_a_mesh_larger_than_one_process_is_refused_before_the_run(
+        tiny_pipeline_dir, tiny_video, tmp_path, option, need):
+    with pytest.raises(ValueError, match=need):
+        engine.main(device="cpu", **minimal_config(
+            tiny_pipeline_dir, tiny_video, str(tmp_path / "o"), **option))
+    assert not os.path.exists(tmp_path / "o")
 
 
 def test_the_card_is_the_default(tiny_pipeline_dir, tiny_video, tmp_path,

@@ -5,6 +5,8 @@ card.
 * In a fresh interpreter, every module of the port is imported; afterwards
   no `text_to_video_finetuning_tpu` module (without `_torch`), `jax` or
   `flax` is in `sys.modules`.  The same holds for `chip_smoke.py`.
+* `parallel/` imports in a fresh interpreter without JAX and without
+  starting a process group, and its `MeshConfig` has the JAX one's fields.
 * The port's own copies of the JAX package's numpy-only modules agree with
   them: the flax <-> torch name map, the CompVis key converters (the webui
   export's) and the minimal tokenizer writer (byte-identical files); the
@@ -86,7 +88,7 @@ def test_torch_names_copy_agrees_with_the_jax_package():
 NEW_MODULES = ["ops.quantized_adam", "utils.convert_compvis", "lora.formats",
                "lora.embeds", "lora.merge", "models.lama", "serving",
                "serving.server", "pipelines.inference", "utils.tokenizer",
-               "cli"]
+               "cli", "parallel", "parallel.mesh", "parallel.sharding"]
 
 
 def test_new_modules_are_walked_and_standalone():
@@ -94,6 +96,36 @@ def test_new_modules_are_walked_and_standalone():
     proc = _run(f"assert {names!r} <= set(names), sorted({names!r} - "
                 "set(names))")
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_PARALLEL = r"""
+import sys
+import text_to_video_finetuning_tpu_torch.parallel as parallel
+import torch.distributed as dist
+config = parallel.mesh_from_string("dp=2,fsdp=2")
+assert parallel.mesh_shape(config, 4)["dp"] == 2
+assert not dist.is_initialized()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "text_to_video_finetuning_tpu"))
+print("foreign:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_parallel_stands_alone_and_keeps_the_jax_mesh_fields():
+    import dataclasses
+
+    from text_to_video_finetuning_tpu.parallel.mesh import MeshConfig as ref
+    from text_to_video_finetuning_tpu_torch.parallel import MeshConfig
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _PARALLEL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert [(f.name, f.default) for f in dataclasses.fields(MeshConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(ref)]
 
 
 @pytest.mark.parametrize("model", ["unet", "text_encoder"])

@@ -267,18 +267,80 @@ def test_learned_embeds_load_and_apply_as_jax(clip_pair, tmp_path, source):
         np.testing.assert_array_equal(pembeds[k].numpy(), jembeds[k])
     jparams, japplied = japply(jembeds, params, jtok)
     papplied = apply_learned_embeds_in_clip(pembeds, clip, ptok)
-    assert papplied == japplied
+    # the JAX loader walks the safetensors binding's metadata, whose order
+    # changes from process to process; the port's takes the header's: the
+    # same tokens, each token's own row, the ids in each side's own order
+    assert sorted(papplied) == sorted(japplied) == sorted(vecs)
     assert len(ptok) == len(jtok)
-    assert clip.config.vocab_size == _table(jparams).shape[0]
-    np.testing.assert_array_equal(
-        clip.text_model.embeddings.token_embedding.weight.detach().numpy(),
-        _table(jparams))
+    ours = clip.text_model.embeddings.token_embedding.weight.detach().numpy()
+    theirs = _table(jparams)
+    assert clip.config.vocab_size == ours.shape[0] == theirs.shape[0]
+    base = len(ptok) - len(vecs)
+    np.testing.assert_array_equal(ours[:base], theirs[:base])
+    for tok in vecs:
+        np.testing.assert_array_equal(
+            ours[ptok.convert_tokens_to_ids(tok)],
+            theirs[jtok.convert_tokens_to_ids(tok)])
+        np.testing.assert_array_equal(
+            ours[ptok.convert_tokens_to_ids(tok)], vecs[tok])
     # the grown table drives the encoder
     ids = torch.tensor(ptok([f"a {TOKEN}"], padding="max_length",
                             truncation=True).input_ids)
     assert (ids == ptok.convert_tokens_to_ids(TOKEN)).any()
     with torch.no_grad():
         assert torch.isfinite(clip(ids)).all()
+
+
+_HEADER_ORDER = r"""
+import json, sys
+from text_to_video_finetuning_tpu_torch.lora.embeds import (
+    apply_learned_embeds_in_clip, load_learned_embeds)
+from text_to_video_finetuning_tpu_torch.utils import checkpoint as ckpt
+from text_to_video_finetuning_tpu_torch.utils.tokenizer import CLIPTokenizer
+pipe, path = sys.argv[1:3]
+clip = ckpt.load_text_encoder(pipe + "/text_encoder", "cpu")
+tok = CLIPTokenizer.from_pretrained(pipe + "/tokenizer")
+applied = apply_learned_embeds_in_clip(load_learned_embeds(path), clip, tok)
+print(json.dumps([[t, tok.convert_tokens_to_ids(t)] for t in applied]))
+"""
+
+
+def test_safeloras_embeds_apply_in_header_order_in_fresh_processes(
+        tiny_pipeline_dir, tmp_path):
+    import json
+    import struct
+    import subprocess
+    import sys
+
+    from text_to_video_finetuning_tpu_torch.lora.formats import (
+        EMBED_FLAG, save_safeloras)
+    from text_to_video_finetuning_tpu_torch.utils import checkpoint as pckpt
+    hidden = pckpt.load_text_encoder(os.path.join(
+        tiny_pipeline_dir, "text_encoder"), "cpu").config.hidden_size
+    rs = np.random.RandomState(4)
+    tokens = ["<zeta>", "<alpha>", "<mid>"]
+    path = str(tmp_path / "e.safetensors")
+    save_safeloras({}, path, embeds={
+        t: torch.from_numpy(rs.randn(hidden).astype(np.float32))
+        for t in tokens})
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    order = [k for k, v in header["__metadata__"].items() if v == EMBED_FLAG]
+    assert sorted(order) == sorted(tokens)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runs = []
+    for _ in range(2):
+        proc = subprocess.run(
+            [sys.executable, "-c", _HEADER_ORDER, tiny_pipeline_dir, path],
+            env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+            text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert runs[0] == runs[1]
+    assert [t for t, _ in runs[0]] == order
+    ids = [i for _, i in runs[0]]
+    assert ids == list(range(ids[0], ids[0] + len(tokens)))
 
 
 def test_embeds_collision_rename_and_idempotent_as_jax(clip_pair):

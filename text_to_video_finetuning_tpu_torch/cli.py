@@ -2,6 +2,8 @@
 text_to_video_finetuning_tpu/cli.py):
 
     t2v-train-torch --config configs/v2/train_config.yaml [--device cpu]
+    torchrun --nproc_per_node 2 -m text_to_video_finetuning_tpu_torch.cli \
+        --config <yaml with mesh_dp / mesh_fsdp>
     t2v-inference-torch -m <pipeline dir> -p "a prompt" [-lP <lora>] ...
     t2v-serve-torch -m <pipeline dir> [--port 8000] [--max-batch 4] ...
     t2v-merge-lora-torch a.pt b.pt -o merged.pt -m <pipeline dir>
@@ -11,7 +13,10 @@ text_to_video_finetuning_tpu/cli.py):
 The flags are the JAX package's, with these differences: `-d/--device`
 (inference; bake; train and serve as `--device`) names a torch device and
 defaults to the card; `--mesh` is accepted and a non-empty value raises
-(multi-device inference is not ported); `t2v-serve-torch` has no
+(multi-device inference is not ported); training runs one process per
+rank under torchrun, each rank on `cuda:{LOCAL_RANK}` of the base device
+`--device cuda` (`--backend` nccl or gloo; see training/engine.py);
+`t2v-serve-torch` has no
 `--no-trim-to-warm` (the port's server keeps no warm-signature table).
 Training's YAML keys are `training/engine.py::main`'s kwargs; reading the
 YAML needs `yaml`, otherwise call `engine.main(**config_dict)`.
@@ -28,7 +33,7 @@ from typing import Optional, Sequence
 from uuid import uuid4
 
 MESH_NOT_PORTED = ("--mesh: multi-device inference is not ported to the "
-                   "PyTorch package yet (ROADMAP.md Queue 1 item 5)")
+                   "PyTorch package yet (ROADMAP.md Queue 1 item 5b)")
 
 
 def _no_mesh(spec: str):
@@ -43,15 +48,25 @@ def train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", type=str, required=True,
                         help="a training YAML (configs/v2/*.yaml)")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to train on (default: cuda)")
+                        help="torch device to train on (default: cuda; "
+                             "under torchrun each rank takes "
+                             "cuda:LOCAL_RANK, and cuda:N puts every rank "
+                             "on card N)")
+    parser.add_argument("--backend", type=str, default=None,
+                        choices=("nccl", "gloo"),
+                        help="process-group backend under torchrun "
+                             "(default: nccl on the card, gloo on the CPU)")
     return parser
 
 
-def train_main(argv: Optional[Sequence[str]] = None) -> str:
+def train_main(argv: Optional[Sequence[str]] = None, record=None) -> str:
+    """`t2v-train-torch`; `record`, an `engine.RunRecord`, is filled in by
+    the run."""
     args = train_parser().parse_args(argv)
     from .config import load_train_config
     from .training.engine import main
-    return main(config=load_train_config(args.config), device=args.device)
+    return main(config=load_train_config(args.config), device=args.device,
+                backend=args.backend, record=record)
 
 
 # -- inference -------------------------------------------------------------------

@@ -83,8 +83,10 @@ class TrainConfig:
     lora_text_dropout: float = 0.1
     logger_type: str = "tensorboard"
     # -- extras of the JAX package (same names and defaults) ----------------
-    # mesh axes; the engine runs on one device, and a value above 1 raises
-    mesh_dp: int = -1           # -1: all devices on the data axis
+    # mesh axes over the torchrun ranks (training/engine.py): the global
+    # batch is train_batch_size x dp, split over all dp x fsdp ranks; fsdp
+    # shards the frozen UNet and CLIP; tp and sp above 1 raise (not ported)
+    mesh_dp: int = -1           # -1: the ranks that fsdp leaves
     mesh_fsdp: int = 1
     mesh_tp: int = 1
     mesh_sp: int = 1            # sequence (frame-axis) parallelism

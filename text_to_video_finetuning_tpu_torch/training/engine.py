@@ -1,4 +1,5 @@
-"""Training engine: config -> run orchestration, on one device (port of
+"""Training engine: config -> run orchestration, on one device or on one
+process per rank under torchrun (port of
 text_to_video_finetuning_tpu/training/engine.py).
 
 Behavioral spec: `train.py main()` (reference train.py:457-984): model
@@ -34,10 +35,30 @@ the step in flight, writes a checkpoint and returns.
 `text_encoder_gradient_checkpointing` changes memory only; the port's CLIP
 runs without checkpointing.
 
-What the JAX engine does across a mesh (multi-host init, ahead-of-time
-compile barriers, the global batch assembly, sharding) has no counterpart
-on one device: a `mesh_*` above 1 raises.  Options not ported yet raise
-`NotImplementedError` naming their ROADMAP item, before anything loads.
+Several ranks (the JAX engine with `mesh_dp` / `mesh_fsdp` above 1): under
+`torchrun` each rank joins the process group (`parallel/mesh.py::
+init_distributed`: NCCL on the card, gloo on the CPU, unless `backend`
+names one; `device="cuda"` gives rank r `cuda:{LOCAL_RANK}`).  The global
+batch is `train_batch_size` x dp, split over all dp x fsdp ranks; the
+loader and a pre-built latent cache are sharded by rank, a fresh cache is
+encoded by stride into `cached_latents/host{rank}` and padded to a common
+count (JAX :115-188).  Every rank draws the whole global batch's noise,
+timesteps and posterior noise from the same step generator and keeps its
+rows, so a dp run follows a one-process run at the same global batch to
+float rounding; the UNet's own dropout draws from the default generator,
+seeded `seed + rank`.  After the backward, the gradients and the losses
+are averaged over the world (`parallel/sharding.py::all_reduce_grads`)
+before the optimizer's non-finite guard, which so decides for all ranks,
+as in JAX where the gradient is global.  `mesh_fsdp` shards the frozen
+UNet and CLIP over the ranks (`shard_frozen`); rank 0 keeps a host copy of
+their weights for its saves, as the JAX engine keeps its host trees.
+Rank 0 alone writes the config, the pipelines, the LoRA files, the train
+state (with every rank's default generator) and tensorboard; every rank
+waits at a barrier after each save.  The SIGTERM decision rides in the same all-reduce, so every
+rank stops at the same step.  `mesh_tp` and `mesh_sp` above 1 raise.
+
+Options not ported yet raise `NotImplementedError` naming their ROADMAP
+item, before anything loads.
 """
 
 from __future__ import annotations
@@ -63,6 +84,9 @@ from ..data import native as dnative
 from ..data.video import export_to_video
 from ..lora.handler import LoraHandler
 from ..lora.overlay import collapse_lora
+from ..parallel import (MeshConfig, all_reduce_grads, frozen_bytes,
+                        init_distributed, local_rows, make_mesh, mesh_shape,
+                        refuse_unported, shard_frozen)
 from ..pipelines.text_to_video import TextToVideoSDPipeline
 from ..schedulers.ddpm import DDPMScheduler
 from ..utils import checkpoint as ckpt
@@ -93,10 +117,7 @@ def check_supported(cfg: TrainConfig):
     if (cfg.validation_data or {}).get("compute_clip_score"):
         _refuse("CLIP-score validation (validation_data.compute_clip_score)",
                 6)
-    mesh = {"mesh_dp": cfg.mesh_dp, "mesh_fsdp": cfg.mesh_fsdp,
-            "mesh_tp": cfg.mesh_tp, "mesh_sp": cfg.mesh_sp}
-    if any(v > 1 for v in mesh.values()):
-        _refuse(f"training on a device mesh ({mesh})", 5)
+    refuse_unported(mesh_config(cfg))
     if (cfg.validation_data or {}).get("sample_preview"):
         try:
             import cv2  # noqa: F401  (the sample's mp4 writer)
@@ -105,6 +126,11 @@ def check_supported(cfg: TrainConfig):
                 "validation_data.sample_preview writes mp4 samples with "
                 "cv2, which is not installed; set sample_preview: False"
             ) from e
+
+
+def mesh_config(cfg: TrainConfig) -> MeshConfig:
+    return MeshConfig(dp=cfg.mesh_dp, fsdp=cfg.mesh_fsdp, tp=cfg.mesh_tp,
+                      sp=cfg.mesh_sp)
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -116,12 +142,26 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
+def _distributed() -> bool:
+    return torch.distributed.is_available() and \
+        torch.distributed.is_initialized()
+
+
 def create_output_folders(output_dir: str, cfg: TrainConfig) -> str:
+    """`output_dir/train_<time>` with `samples/` and the config; across
+    ranks, rank 0's time (JAX :56-70: clocks can straddle a second) and
+    rank 0 alone writes the config."""
     now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+    rank = 0
+    if _distributed():
+        box = [now]
+        torch.distributed.broadcast_object_list(box, src=0)
+        now, rank = box[0], torch.distributed.get_rank()
     out_dir = os.path.join(output_dir, f"train_{now}")
     os.makedirs(out_dir, exist_ok=True)
     os.makedirs(f"{out_dir}/samples", exist_ok=True)
-    save_config(cfg, os.path.join(out_dir, "config.yaml"))
+    if rank == 0:
+        save_config(cfg, os.path.join(out_dir, "config.yaml"))
     return out_dir
 
 
@@ -166,40 +206,60 @@ def should_sample(global_step, validation_steps, validation_data) -> bool:
 
 @torch.no_grad()
 def handle_cache_latents(cfg: TrainConfig, output_dir: str, loader,
-                         vae, device: torch.device):
-    """reference train.py:266-314: one VAE-encode pass over the dataset,
-    cached to disk as `.t2vc` files, then a cached-latent loader
-    (num_workers=0); or, with `cached_latent_dir`, a loader over that
-    shared cache.  Every item is cached (the reference assumes batch size
-    1, train.py:297)."""
+                         vae, device: torch.device, rank: int = 0,
+                         world: int = 1,
+                         global_batch: Optional[int] = None):
+    """reference train.py:266-314 (JAX :115-188): one VAE-encode pass over
+    the dataset, cached to disk as `.t2vc` files, then a cached-latent
+    loader (num_workers=0); or, with `cached_latent_dir`, a loader over
+    that shared cache, sharded by rank at load.  Every item is cached (the
+    reference assumes batch size 1, train.py:297).  Across ranks a fresh
+    cache is rank-local: rank r encodes items r, r + world, ... into
+    `cached_latents/host{r}` and repeats its last item up to
+    ceil(len / world), so every rank reads the same number of batches of
+    `global_batch / world` rows."""
     if not cfg.cache_latents:
         return None
+    global_batch = global_batch or cfg.train_batch_size
     if cfg.cached_latent_dir is not None:
         cache_dir = os.path.abspath(cfg.cached_latent_dir)
+        batch, shards = global_batch, (world, rank)
     else:
         cache_dir = f"{output_dir}/cached_latents"
+        if world > 1:
+            cache_dir = f"{cache_dir}/host{rank}"
+        batch, shards = local_rows(global_batch, rank, world)[1], (1, 0)
         os.makedirs(cache_dir, exist_ok=True)
         generator = torch.Generator(device).manual_seed(cfg.seed or 0)
         # the DATASET, not the padded loader, whose wrap-around pad would
         # bake duplicate items into the cache
         dataset = loader.dataset
-        for idx in range(len(dataset)):
+        if len(dataset) == 0:
+            raise ValueError("the dataset has no items to cache")
+        if rank >= len(dataset):
+            raise ValueError(f"rank {rank} received no dataset items to "
+                             f"cache (the dataset has {len(dataset)} items, "
+                             f"{world} ranks)")
+        ext, written = dnative.CACHE_EXT, 0
+        for idx in range(rank, len(dataset), world):
             item = dataset[idx]
             px = torch.as_tensor(np.asarray(item["pixel_values"]),
                                  device=device)            # (F, C, H, W)
             lat = vae.encode(px, generator=generator) * 0.18215
             lat = lat.permute(1, 0, 2, 3)                   # (C, F, h, w)
             dnative.cache_write_item(
-                f"{cache_dir}/cached_{idx}{dnative.CACHE_EXT}",
+                f"{cache_dir}/cached_{written}{ext}",
                 lat.float().cpu().numpy(), np.asarray(item["prompt_ids"]),
                 item["text_prompt"])
-        if len(dataset) == 0:
-            raise ValueError("the dataset has no items to cache")
+            written += 1
+        for pad in range(written, math.ceil(len(dataset) / world)):
+            shutil.copyfile(f"{cache_dir}/cached_{written - 1}{ext}",
+                            f"{cache_dir}/cached_{pad}{ext}")
     # keep the training loader's shape-grouped batching: cached items keep
     # their per-bucket (h, w), and stacking mixed shapes would fail
-    return DataLoader(CachedDataset(cache_dir=cache_dir),
-                      batch_size=cfg.train_batch_size, shuffle=False,
-                      num_workers=0, pad_last=True,
+    return DataLoader(CachedDataset(cache_dir=cache_dir), batch_size=batch,
+                      shuffle=False, num_workers=0, pad_last=True,
+                      num_shards=shards[0], shard_index=shards[1],
                       bucket_batching=getattr(loader, "bucket_batching",
                                               False))
 
@@ -292,6 +352,7 @@ class RunRecord:
 
     * `steps`: each micro-step's (seconds, loss); on the card the step is
       timed to the device synchronize that `StepTimer.tick` makes;
+      `grad_norms`: each micro-step's gradient norm before the clip;
     * `saves`: each save's (what, seconds): a pipeline write (on its
       background thread) or a train-state snapshot (the part the loop
       waits for);
@@ -304,15 +365,26 @@ class RunRecord:
       snapshot, sampling, the joins at the end; a background pipeline
       write runs on into the next steps' spans) and "final save".  The
       run's peak is their largest; the run resets the device's peak
-      statistics at its start and at each span's end.
+      statistics at its start and at each span's end;
+    * across ranks: `rank`, `world` and the process group's `backend`
+      (None without one); `syncs`, each step's gradient
+      all-reduce (seconds, bytes), timed from a device synchronize before
+      it to the read of its result; `frozen_bytes`, the bytes of frozen
+      parameters this rank holds (its shards under `mesh_fsdp`).
 
     Without a record the run snapshots and reads back nothing more."""
     steps: List[Tuple[float, float]] = dataclasses.field(
         default_factory=list)
+    grad_norms: List[float] = dataclasses.field(default_factory=list)
     saves: List[Tuple[str, float]] = dataclasses.field(default_factory=list)
     initial: Optional[Dict[str, Any]] = None
     final: Optional[Dict[str, Any]] = None
     peaks: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
+    rank: int = 0
+    world: int = 1
+    backend: Optional[str] = None
+    syncs: List[Tuple[float, int]] = dataclasses.field(default_factory=list)
+    frozen_bytes: int = 0
 
     def timed(self, what: str, fn, *args, **kwargs):
         """`fn(*args, **kwargs)`, its time appended to `saves`."""
@@ -332,30 +404,65 @@ class RunRecord:
 
 
 def main(device: Union[str, torch.device] = "cuda",
-         record: Optional[RunRecord] = None, **kwargs):
+         record: Optional[RunRecord] = None, backend: Optional[str] = None,
+         **kwargs):
     """Train with the YAML's keys as `kwargs` (or `config=TrainConfig`);
     returns the run's output directory.  `record`, when given, is filled
-    in as `RunRecord` says."""
-    device = resolve_device(device)
-    keep = record is not None
-    record = record if keep else RunRecord()
-
-    def mark(span: Optional[str]):
-        if keep:
-            record.mark(span, device)
-
-    mark(None)
+    in as `RunRecord` says.  Under torchrun the run starts the process
+    group (`backend`: nccl or gloo, by default NCCL on the card and gloo on
+    the CPU) and leaves it at its end."""
     cfg = (kwargs.pop("config") if isinstance(kwargs.get("config"),
                                               TrainConfig)
            else train_config_from_dict(kwargs))
     logging.basicConfig(level=logging.INFO)
     check_supported(cfg)
+    device = resolve_device(device)
+    rank, world, device = init_distributed(device, backend)
+    try:
+        return _run(cfg, device, rank, world, record)
+    finally:
+        if _distributed():
+            torch.distributed.destroy_process_group()
+
+
+def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
+         record: Optional[RunRecord]) -> str:
+    keep = record is not None
+    record = record if keep else RunRecord()
+    record.rank, record.world = rank, world
+    distributed = _distributed()
+    if distributed:
+        record.backend = torch.distributed.get_backend()
+    is_main = rank == 0
+
+    def mark(span: Optional[str]):
+        if keep:
+            record.mark(span, device)
+
+    def barrier():
+        if distributed:
+            torch.distributed.barrier(
+                device_ids=[device.index] if torch.distributed.get_backend()
+                == "nccl" else None)
+
+    mark(None)
+    # the sizes first: a mesh that does not fit the world, or a global
+    # batch that does not split over it, fails before the run directory
+    shape = mesh_shape(mesh_config(cfg), world)
+    global_batch = cfg.train_batch_size * shape["dp"]
+    if global_batch % world:
+        raise ValueError(
+            f"global batch size {global_batch} (train_batch_size "
+            f"{cfg.train_batch_size} x dp {shape['dp']}) must be divisible "
+            f"by the {world} ranks: every rank takes an equal slice of it")
+    row_start, local_batch = local_rows(global_batch, rank, world)
     seed = cfg.seed if cfg.seed is not None else 0
-    # the device's default generator feeds the UNet's dropout
-    torch.manual_seed(seed)
+    # the device's default generator feeds the UNet's dropout: its own
+    # stream on each rank
+    torch.manual_seed(seed + rank)
 
     output_dir = create_output_folders(cfg.output_dir, cfg)
-    writer = _open_writer(cfg, output_dir)
+    writer = _open_writer(cfg, output_dir) if is_main else None
 
     scheduler_config, tokenizer, text_encoder, vae, unet = \
         load_primary_models(cfg.pretrained_model_path, device,
@@ -372,11 +479,13 @@ def main(device: Union[str, torch.device] = "cuda",
 
     learning_rate = cfg.learning_rate
     if cfg.scale_lr:
-        # reference train.py:548-551: lr x accum x batch x processes (one)
+        # reference train.py:548-551: lr x accum x batch x processes; the
+        # processes' count is the dp extent (JAX :390-394)
         learning_rate = (learning_rate * cfg.gradient_accumulation_steps
-                         * cfg.train_batch_size)
+                         * cfg.train_batch_size * shape["dp"])
 
-    # LoRA (JAX engine.py:413-431); the step generator draws the inits
+    # LoRA (JAX engine.py:413-431); the step generator draws the inits, the
+    # same on every rank
     lora_manager = LoraHandler(
         version=cfg.lora_version, use_unet_lora=cfg.use_unet_lora,
         use_text_lora=cfg.use_text_lora,
@@ -422,8 +531,25 @@ def main(device: Union[str, torch.device] = "cuda",
     n_trainable = sum(t.numel() for t in leaves(trainable))
     n_frozen = sum(p.numel() for m in (unet, text_encoder, vae)
                    for p in m.parameters() if not p.requires_grad)
-    logger.info(f"device={device} trainable params={n_trainable:,} "
-                f"frozen={n_frozen:,}")
+    frozen_host = None
+    if distributed and shape["fsdp"] > 1:
+        # the placement the JAX engine uses (:581-607): the trainable state
+        # and the VAE replicated, the frozen UNet and CLIP over fsdp
+        mesh = make_mesh(mesh_config(cfg), device.type)
+        if is_main:
+            # the frozen weights never change: rank 0 keeps them on the
+            # host for its saves, as the JAX engine keeps its host trees,
+            # and no save needs a gather
+            frozen_host = {
+                "unet": train_state_io.to_host(plain_state_dict(unet)),
+                "text": train_state_io.to_host(
+                    plain_state_dict(text_encoder))}
+        shard_frozen(unet, mesh, unet_trainable.values())
+        shard_frozen(text_encoder, mesh, text_trainable.values())
+    record.frozen_bytes = frozen_bytes(unet, text_encoder, vae)
+    logger.info(f"device={device} rank={rank}/{world} mesh={shape} "
+                f"trainable params={n_trainable:,} frozen={n_frozen:,} "
+                f"(held here: {record.frozen_bytes / 2**20:.1f} MiB)")
 
     # optimizer: AdamW behind the clip, then the accumulation window, then
     # the non-finite guard (the JAX engine's composition order)
@@ -462,15 +588,46 @@ def main(device: Union[str, torch.device] = "cuda",
     use_bucketing = bool((cfg.train_data or {}).get("use_bucketing")) or any(
         bool((ds.get("train_data") or {}).get("use_bucketing"))
         for ds in (cfg.extra_train_data or []))
-    train_dataloader = DataLoader(train_dataset,
-                                  batch_size=cfg.train_batch_size,
+    if use_bucketing and world > 1:
+        # JAX :536-546: every rank must emit the same batch sequence
+        logger.warning(
+            "use_bucketing: shape-grouped batch ordering is single-host "
+            "only; disabling bucket batching for this multi-host run")
+        use_bucketing = False
+    # the loader's batch is the global one; each rank loads its rows
+    train_dataloader = DataLoader(train_dataset, batch_size=global_batch,
                                   shuffle=cfg.shuffle, seed=cfg.seed or 0,
-                                  pad_last=True,
+                                  pad_last=True, num_shards=world,
+                                  shard_index=rank,
                                   bucket_batching=use_bucketing)
     cached = handle_cache_latents(cfg, output_dir, train_dataloader, vae,
-                                  device)
+                                  device, rank, world, global_batch)
     if cached is not None:
         train_dataloader = cached
+    barrier()       # every rank's cache is written before the first step
+
+    # graceful preemption: the handler only flips an event; the loop
+    # finishes the step in flight, writes checkpoint-<step> and returns.
+    # Across ranks the flag rides in the gradient all-reduce, and every
+    # rank acts on the reduced one, so all stop at the same step.
+    stop_event = threading.Event()
+    stop_seen = [False]
+
+    def grad_sync(trainable_now, scalars):
+        if keep and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        flag = torch.tensor([float(stop_event.is_set())],
+                            device=scalars.device)
+        means, nbytes = all_reduce_grads(trainable_now,
+                                         extra=torch.cat([scalars, flag]))
+        stop_seen[0] = bool(means[-1] > 0)          # waits for the reduce
+        if keep:
+            record.syncs.append((time.perf_counter() - t0, nbytes))
+        return means[:-1]
+
+    def stopping() -> bool:
+        return stop_seen[0] if distributed else stop_event.is_set()
 
     step_cfg = TrainStepConfig(
         unet=unet, text_encoder=text_encoder, scheduler=noise_scheduler,
@@ -484,7 +641,9 @@ def main(device: Union[str, torch.device] = "cuda",
         offset_noise_strength=cfg.offset_noise_strength,
         eval_train=bool(cfg.eval_train), two_pass=cfg.two_pass_loss,
         ema_decay=(cfg.ema_decay if cfg.use_ema else 0.0),
-        ema_every=cfg.gradient_accumulation_steps)
+        ema_every=cfg.gradient_accumulation_steps,
+        rows=(row_start, global_batch) if distributed else None,
+        grad_sync=grad_sync if distributed else None)
     # split_two_pass: the two passes one after the other, only where a
     # second pass runs (JAX engine.py:613-622)
     if cfg.split_two_pass and (cfg.two_pass_loss
@@ -499,11 +658,12 @@ def main(device: Union[str, torch.device] = "cuda",
                        generator=generator,
                        ema=ema_init(trainable) if cfg.use_ema else None)
     # full-state resume (step + Adam moments + generators), which the
-    # reference cannot do: its optimizer state is not saved
+    # reference cannot do: its optimizer state is not saved; every rank
+    # reads it and takes its own default generator
     if (cfg.resume_from_checkpoint
             and train_state_io.has_train_state(cfg.resume_from_checkpoint)):
         state = train_state_io.load_train_state(cfg.resume_from_checkpoint,
-                                                state)
+                                                state, rank)
         logger.info(f"Restored train state (step {state.step}) from "
                     f"{cfg.resume_from_checkpoint}")
     if keep:
@@ -519,7 +679,7 @@ def main(device: Union[str, torch.device] = "cuda",
     logger.info(f"  Instantaneous batch size per device = "
                 f"{cfg.train_batch_size}")
     logger.info(f"  Total train batch size = "
-                f"{cfg.train_batch_size * cfg.gradient_accumulation_steps}")
+                f"{global_batch * cfg.gradient_accumulation_steps}")
     logger.info(f"  Total optimization steps = {cfg.max_train_steps}")
 
     models = {"unet_config": unet.config, "clip_config": text_encoder.config,
@@ -541,7 +701,7 @@ def main(device: Union[str, torch.device] = "cuda",
     else:
         pass1 = "full"
     timer = StepTimer(flops_per_step=unet3d_flops_per_step(
-        unet.config, batch=cfg.train_batch_size,
+        unet.config, batch=local_batch,
         frames=td.get("n_sample_frames", 16),
         height=td.get("height", 256), width=td.get("width", 256),
         pass1=pass1), device=device)
@@ -551,13 +711,18 @@ def main(device: Union[str, torch.device] = "cuda",
         """Host snapshot of the weights to save / sample: the EMA shadow
         when use_ema (diffusers export semantics), else the live trainable
         tensors.  Frozen tensors are never written in place, so the
-        snapshot copies only the trainable ones."""
+        snapshot copies only the trainable ones (under `mesh_fsdp` the
+        frozen ones come from rank 0's host copy)."""
         src = (state.ema if (cfg.use_ema and state.ema is not None
                              and prefer_ema) else state.trainable)
         host = train_state_io.to_host(src)
-        unet_sd = plain_state_dict(unet)
+        if frozen_host is not None:
+            unet_sd, text_sd = (dict(frozen_host["unet"]),
+                                dict(frozen_host["text"]))
+        else:
+            unet_sd = plain_state_dict(unet)
+            text_sd = plain_state_dict(text_encoder)
         unet_sd.update(host.get("unet", {}))
-        text_sd = plain_state_dict(text_encoder)
         text_sd.update(host.get("text", {}))
         return ({"unet": unet_sd, "text": text_sd, "vae": vae.state_dict()},
                 {"unet_lora": host.get("unet_lora"),
@@ -569,7 +734,8 @@ def main(device: Union[str, torch.device] = "cuda",
         """A validation clip through the ported pipeline with the EMA (when
         use_ema) or the live weights, both LoRAs through the branch layers
         (equal to their collapse, JAX engine.py:855-866), written as an mp4
-        beside the run."""
+        beside the run by rank 0.  Every rank samples: a sharded model
+        runs only on all of them."""
         use_ema = cfg.use_ema and state.ema is not None
         backup = train_state_io.to_host(state.trainable) if use_ema else None
         vd = cfg.validation_data
@@ -596,31 +762,43 @@ def main(device: Union[str, torch.device] = "cuda",
                 for dst, val in zip(leaves(state.trainable),
                                     leaves(backup)):
                     dst.copy_(val)
+        if not is_main:
+            return
         save_name = (f"{global_step}_dataset-{batch['dataset'][0]}_"
                      f"{prompt[:60]}")
         out_file = f"{output_dir}/samples/{save_name}.mp4"
         export_to_video(frames[0], out_file, cfg.train_data.get("fps", 8))
         logger.info(f"Saved a new sample to {out_file}")
 
+    def device_rngs():
+        """Every rank's default generator, in rank order (a collective)."""
+        if not distributed:
+            return None
+        out = [None] * world
+        torch.distributed.all_gather_object(
+            out, train_state_io.device_rng_state(device))
+        return out
+
     def checkpoint(context: str):
-        params_now, lora_now = current_params()
-        pipe_saver.submit(record.timed, "pipeline", save_pipe, cfg,
-                          output_dir, global_step, cfg.pretrained_model_path,
-                          models, params_now, lora_now, lora_manager, True,
-                          context=f"{context} pipeline save")
-        record.timed("train state snapshot", state_saver.save,
-                     os.path.join(output_dir, f"checkpoint-{global_step}"),
-                     state)
-        prune_checkpoints(output_dir, cfg.checkpoints_total_limit,
-                          in_flight_step=global_step)
+        rngs = device_rngs()
+        if is_main:
+            params_now, lora_now = current_params()
+            pipe_saver.submit(record.timed, "pipeline", save_pipe, cfg,
+                              output_dir, global_step,
+                              cfg.pretrained_model_path, models, params_now,
+                              lora_now, lora_manager, True,
+                              context=f"{context} pipeline save")
+            record.timed("train state snapshot", state_saver.save,
+                         os.path.join(output_dir,
+                                      f"checkpoint-{global_step}"),
+                         state, rngs)
+            prune_checkpoints(output_dir, cfg.checkpoints_total_limit,
+                              in_flight_step=global_step)
+        barrier()
 
     epoch = 0
     state_saver = train_state_io.AsyncTrainStateSaver()
     pipe_saver = OneInFlight(name="t2v-save-pipe")
-    # graceful preemption: the handler only flips an event; the loop
-    # finishes the step in flight, writes checkpoint-<step> and returns.
-    # Handlers install only from the main thread.
-    stop_event = threading.Event()
     last_ckpt_step = -1
     prev_sigterm = None
 
@@ -629,14 +807,14 @@ def main(device: Union[str, torch.device] = "cuda",
                        "step, then checkpointing and stopping")
         stop_event.set()
 
+    # handlers install only from the main thread
     if (cfg.save_on_preemption
             and threading.current_thread() is threading.main_thread()):
         prev_sigterm = signal.signal(signal.SIGTERM, _on_preempt)
     # join the savers on every exit path: an in-flight write would
     # otherwise never be joined and its error lost
     try:
-        while (global_step < cfg.max_train_steps
-               and not stop_event.is_set()):
+        while global_step < cfg.max_train_steps and not stopping():
             epoch_batches = 0
             for step, batch in enumerate(train_dataloader):
                 epoch_batches += 1
@@ -658,7 +836,8 @@ def main(device: Union[str, torch.device] = "cuda",
                 t0 = time.perf_counter()
                 state, metrics = train_step(state, device_batch)
                 # window-mean train_loss (reference train.py:855-890), kept
-                # on the device until logging
+                # on the device until logging; across ranks the mean over
+                # the world
                 window_losses.append(metrics["loss"])
                 micro_step += 1
                 run_steps += 1
@@ -669,6 +848,7 @@ def main(device: Union[str, torch.device] = "cuda",
                 if keep:
                     record.steps.append((time.perf_counter() - t0,
                                          float(metrics["loss"])))
+                    record.grad_norms.append(float(metrics["grad_norm"]))
                 mark(f"step {run_steps}")
 
                 # global_step counts optimizer updates, one per
@@ -712,7 +892,7 @@ def main(device: Union[str, torch.device] = "cuda",
                     vd = cfg.validation_data
                     sample(vd.get("prompt") or last_prompt, batch)
 
-                if global_step >= cfg.max_train_steps or stop_event.is_set():
+                if global_step >= cfg.max_train_steps or stopping():
                     break
             epoch += 1
             if epoch_batches == 0:
@@ -721,8 +901,7 @@ def main(device: Union[str, torch.device] = "cuda",
                     "(dataset smaller than the batch size, or every bucket "
                     "below batch size); reduce train_batch_size or enable "
                     "extend_dataset")
-        if (stop_event.is_set() and global_step > 0
-                and global_step != last_ckpt_step):
+        if stopping() and global_step > 0 and global_step != last_ckpt_step:
             # the preemption checkpoint: what the periodic path writes
             logger.warning(f"graceful stop at step {global_step}: writing "
                            f"checkpoint-{global_step} before exit")
@@ -757,13 +936,15 @@ def main(device: Union[str, torch.device] = "cuda",
     if keep:
         record.final = train_state_io.snapshot(state)
     mark(f"after step {run_steps}" if run_steps else "set-up")
-    if not stop_event.is_set():
+    if not stopping():
         # end-of-training export; on preemption the checkpoint above is
         # already durable
-        params_now, lora_now = current_params()
-        record.timed("pipeline", save_pipe, cfg, output_dir, global_step,
-                     cfg.pretrained_model_path, models, params_now,
-                     lora_now, lora_manager, is_checkpoint=False)
+        if is_main:
+            params_now, lora_now = current_params()
+            record.timed("pipeline", save_pipe, cfg, output_dir, global_step,
+                         cfg.pretrained_model_path, models, params_now,
+                         lora_now, lora_manager, is_checkpoint=False)
+        barrier()
     mark("final save")
     if writer is not None:
         for gs, tl in pending_losses:

@@ -34,12 +34,23 @@ latents), noise (and offset noise), timesteps.  Its numbers differ from
 values.  The UNet's own
 dropout (the temporal convs' 0.1) draws from PyTorch's default generator
 of the device, and is off with `eval_train`.
+
+Across ranks (training/engine.py under torchrun), `TrainStepConfig.rows`
+= (start, global batch) makes every draw that has a batch axis (the
+posterior noise, the noise and offset noise, the timesteps) be taken for
+the whole global batch from the step generator, which every rank holds in
+the same state, and the rank keep its own rows: a dp run then draws what a
+one-process run at the same global batch draws.  The LoRA dropout masks
+have no batch axis and are the same on every rank.  `grad_sync` runs after
+the backward (both passes of the split step) and before the optimizer
+and its non-finite guard: the engine's all-reduce of the gradients and the
+losses (parallel/sharding.py::all_reduce_grads).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -88,39 +99,58 @@ class TrainStepConfig:
     ema_decay: float = 0.0
     ema_every: int = 1
     two_pass: bool = True
+    # (first row, global batch): the draws are taken for the global batch
+    # and this rank keeps its rows; None: the batch is the whole of it
+    rows: Optional[Tuple[int, int]] = None
+    # grad_sync(trainable, scalars) -> scalars: after the backward, before
+    # the optimizer; averages the gradients and the scalars (the losses)
+    # over the ranks
+    grad_sync: Optional[Callable] = None
+
+
+def _rows(rows: Optional[Tuple[int, int]], n: int) -> Tuple[int, int]:
+    """(first row, rows to draw) for a local batch of `n` rows."""
+    return rows if rows is not None else (0, n)
 
 
 def sample_noise(generator: torch.Generator, latents: torch.Tensor,
-                 noise_strength: float, use_offset_noise: bool
-                 ) -> torch.Tensor:
+                 noise_strength: float, use_offset_noise: bool,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Gaussian noise of the latents' shape and dtype, plus per-(video,
-    channel, frame) offset noise when asked."""
-    noise = torch.randn(latents.shape, generator=generator,
+    channel, frame) offset noise when asked; with `rows` = (start, global)
+    both are drawn for the global batch and rows start.. are kept."""
+    b, c, f = latents.shape[:3]
+    start, total = _rows(rows, b)
+    noise = torch.randn((total,) + tuple(latents.shape[1:]),
+                        generator=generator,
                         device=latents.device).to(latents.dtype)
     if use_offset_noise:
-        b, c, f = latents.shape[:3]
-        offset = torch.randn((b, c, f, 1, 1), generator=generator,
+        offset = torch.randn((total, c, f, 1, 1), generator=generator,
                              device=latents.device).to(latents.dtype)
         noise = noise + noise_strength * offset
-    return noise
+    return noise[start:start + b]
 
 
 @torch.no_grad()
 def tensor_to_vae_latent(cfg: TrainStepConfig, pixel_values: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
-                         noise: Optional[torch.Tensor] = None
+                         noise: Optional[torch.Tensor] = None,
+                         rows: Optional[Tuple[int, int]] = None
                          ) -> torch.Tensor:
     """reference train.py:339-347 (JAX train_step.py:175-185): pixel frames
     (B, F, C, H, W) folded to one batch of B*F images, encoded as a sample
     of the posterior, back to (B, 4, F, h, w), times `scaling_factor`.  The
     posterior noise, (B*F, 4, h, w), is drawn fp32 from `generator` and cast
-    to the VAE's dtype, or given as `noise`."""
+    to the VAE's dtype, or given as `noise`; with `rows` it is drawn for
+    the global batch and this rank's rows are kept."""
     b, f = pixel_values.shape[:2]
     px = pixel_values.reshape((b * f,) + tuple(pixel_values.shape[2:]))
     mean, logvar = cfg.vae.moments(px)
     if noise is None:
-        noise = torch.randn(mean.shape, generator=generator,
-                            device=mean.device, dtype=torch.float32)
+        start, total = _rows(rows, b)
+        noise = torch.randn((total * f,) + tuple(mean.shape[1:]),
+                            generator=generator, device=mean.device,
+                            dtype=torch.float32)[start * f:(start + b) * f]
     latents = mean + torch.exp(0.5 * logvar) * noise.to(mean.device,
                                                         mean.dtype)
     latents = latents.reshape((b, f) + tuple(latents.shape[1:]))
@@ -161,14 +191,16 @@ def draw_step(cfg: TrainStepConfig, trainable, batch,
         latents = batch["pixel_values"]          # cached latents
     else:
         latents = tensor_to_vae_latent(cfg, batch["pixel_values"],
-                                       generator, vae_noise)
+                                       generator, vae_noise, cfg.rows)
     if noise is None:
         noise = sample_noise(generator, latents, cfg.offset_noise_strength,
-                             cfg.use_offset_noise)
+                             cfg.use_offset_noise, cfg.rows)
     if timesteps is None:
-        timesteps = torch.randint(0, cfg.scheduler.num_train_timesteps,
-                                  (latents.shape[0],), generator=generator,
-                                  device=latents.device)
+        start, total = _rows(cfg.rows, latents.shape[0])
+        timesteps = torch.randint(
+            0, cfg.scheduler.num_train_timesteps, (total,),
+            generator=generator,
+            device=latents.device)[start:start + latents.shape[0]]
     return StepDraws(masks["unet_lora"], masks["text_lora"], latents, noise,
                      timesteps)
 
@@ -277,6 +309,11 @@ def _ema_update(cfg: TrainStepConfig, state: TrainState, optimizer):
 
 def _finish_step(cfg: TrainStepConfig, optimizer, state: TrainState,
                  loss, aux):
+    if cfg.grad_sync is not None:
+        means = cfg.grad_sync(state.trainable, torch.stack(
+            [loss.detach().float(), aux["loss0"].float(),
+             aux["loss1"].float()]))
+        loss, aux = means[0], {"loss0": means[1], "loss1": means[2]}
     grad_norm = optimizer.step(state.opt_state, state.step)
     _ema_update(cfg, state, optimizer)
     metrics = {"loss": loss.detach(), **aux, "grad_norm": grad_norm}

@@ -21,6 +21,8 @@ other's train state.  It holds
 * `generator`: the step generator's state;
 * `device_rng`: the state of the device's default generator, which the
   UNet's dropout draws from;
+* `device_rng_by_rank`, in a run of several ranks: every rank's default
+  generator (each is seeded `seed + rank`), which the writing rank gathers;
 * `ema`: the EMA shadow, or None.
 
 Every tensor is written as it is in memory and restored with `copy_`, so
@@ -34,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -60,24 +62,29 @@ def to_host(tree):
     return tree
 
 
-def _device_rng_state(device: torch.device) -> Dict[str, Any]:
+def device_rng_state(device: torch.device) -> Dict[str, Any]:
     if device.type == "cuda":
         return {"type": "cuda", "state": torch.cuda.get_rng_state(device)}
     return {"type": device.type, "state": torch.get_rng_state()}
 
 
-def snapshot(state) -> Dict[str, Any]:
+def snapshot(state, device_rngs: Optional[List[Dict[str, Any]]] = None
+             ) -> Dict[str, Any]:
     """The train state as host tensors and plain values (what
-    `save_train_state` writes)."""
-    return {
+    `save_train_state` writes); `device_rngs`, every rank's
+    `device_rng_state` in rank order, for a run of several ranks."""
+    snap = {
         "format": FORMAT,
         "step": int(state.step),
         "trainable": to_host(state.trainable),
         "opt": to_host(opt_state_dict(state.opt_state)),
         "generator": state.generator.get_state(),
-        "device_rng": _device_rng_state(state.generator.device),
+        "device_rng": device_rng_state(state.generator.device),
         "ema": to_host(state.ema),
     }
+    if device_rngs is not None:
+        snap["device_rng_by_rank"] = device_rngs
+    return snap
 
 
 def _write(path: str, snap: Dict[str, Any]) -> str:
@@ -107,10 +114,11 @@ class AsyncTrainStateSaver:
     def __init__(self):
         self._writer = OneInFlight(name="t2v-save-train-state")
 
-    def save(self, checkpoint_dir: str, state) -> str:
+    def save(self, checkpoint_dir: str, state,
+             device_rngs: Optional[List[Dict[str, Any]]] = None) -> str:
         self._writer.join()
         path = state_path(checkpoint_dir)
-        self._writer.submit(_write, path, snapshot(state),
+        self._writer.submit(_write, path, snapshot(state, device_rngs),
                             context=f"train state save to {path}")
         return path
 
@@ -139,10 +147,12 @@ def _copy_into(dst, src, what: str):
         _copy_into(dst[k], src[k], f"{what}/{k}")
 
 
-def load_train_state(checkpoint_dir: str, state):
+def load_train_state(checkpoint_dir: str, state, rank: int = 0):
     """Restore a state written by `save_train_state` into `state` (a fresh
     one of the same run: same trainable tree and optimizer), in place, and
-    return it with the saved step.
+    return it with the saved step.  Rank `rank` of a run of several takes
+    its own default generator (`device_rng_by_rank`); one that the file
+    does not hold keeps its seed, with a warning.
 
     As in the JAX package, the EMA may differ between the two runs: a
     checkpoint without an EMA, resumed with `use_ema`, seeds the shadow
@@ -158,8 +168,15 @@ def load_train_state(checkpoint_dir: str, state):
     _copy_into(state.trainable, saved["trainable"], "trainable")
     load_opt_state_dict(state.opt_state, saved["opt"])
     state.generator.set_state(saved["generator"])
-    rng = saved["device_rng"]
-    if rng["type"] == "cuda" and state.generator.device.type == "cuda":
+    by_rank = saved.get("device_rng_by_rank")
+    if by_rank is not None:
+        rng = by_rank[rank] if rank < len(by_rank) else None
+    else:
+        rng = saved["device_rng"] if rank == 0 else None
+    if rng is None:
+        logger.warning(f"{path} holds no default generator for rank {rank}; "
+                       "it keeps its seed")
+    elif rng["type"] == "cuda" and state.generator.device.type == "cuda":
         torch.cuda.set_rng_state(rng["state"], state.generator.device)
     elif rng["type"] == state.generator.device.type:
         torch.set_rng_state(rng["state"])
