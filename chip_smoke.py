@@ -7,9 +7,10 @@ batching HTTP server), takes LoRA training steps through its training path in fi
 configurations and trains configs/v2/train_config.yaml's full finetune and
 the three LoRA YAMLs (lora_training_config.yaml, stable_lora_config.yaml,
 low_vram_config_example.yaml) through the training engine (with
-checkpoints, resumes and reloads), and lora_training_config.yaml on two
-ranks under torchrun (phase 20), all at the full width of the ms-1.7b
-model (random weights from a seed).
+checkpoints, resumes and reloads), lora_training_config.yaml on two
+ranks under torchrun (phase 20), and the eval and tooling entry points
+with CLIP-score validation in the engine (phase 21), all at the full width
+of the ms-1.7b model (random weights from a seed).
 
     python3 chip_smoke.py
 
@@ -125,7 +126,8 @@ starts.)  Phases, each fatal on failure (non-zero exit, no result line):
      load of a pre-built cache), DIST_STEPS steps with checkpoint-2 each:
      (c) one process at train_batch_size 2, in a one-rank NCCL group, the
      yardstick; then (a) mesh_dp=2 at train_batch_size 1 (global batch 2)
-     and (b) mesh_dp=1 mesh_fsdp=2 at 2, each one `python -m
+     and (b) mesh_dp=1 mesh_fsdp=2 at 2 (both ranks one fsdp group,
+     each holding both rows: (c)'s batch), each one `python -m
      torch.distributed.run` launch of two ranks (this file,
      `--rank-worker`).  Two or more cards: a card per rank over NCCL; one
      card: both ranks on cuda:0 over gloo.  (a) and (b) against (c): step
@@ -142,6 +144,28 @@ starts.)  Phases, each fatal on failure (non-zero exit, no result line):
      bytes printed.  (The resume on two ranks is held bit for bit on the
      CPU, tests/test_torch_engine_dist.py: on the card a third run of two
      ranks took the phase past its time.)
+ 21. eval and tooling at full width, on a CLIP dual encoder of
+     openai/clip-vit-base-patch32's geometry (CLIP_B32_*, random weights
+     from SEED, written by the port as a transformers CLIPModel dir): (a)
+     lora_training_config.yaml's keys on phase 4's pipeline and phase 16's
+     latents for one step with the sample and `compute_clip_score`: the
+     mp4 written, one finite `clip_score=` line in [0, 100], K1-K3 at the
+     step's counts plus the sample's 125 K1 at B=32, all on `sm90`; the
+     sampled frames scored on the card and on the CPU (fp32): embeddings
+     and unclamped per-frame similarities within CLIP_REL_L2_TOL, scores
+     within CLIP_SCORE_TOL; `t2v-eval-torch` on the mp4 with --json_out,
+     exit 0 and one record; (b) `t2v-convert-compvis-torch --half
+     --use_safetensors --clip_checkpoint_path` on phase 4's pipeline: every
+     UNet key under the CompVis prefixes, the key count the source's,
+     every value the source's cast to fp16 bit for bit (proj_in / proj_out
+     unsqueezed where `_DO_NOT_UNSQUEEZE` says), the 23-layer CLIP through
+     the v2.0 branch with each fused in_proj equal to cat(q, k, v); the
+     outputs deleted; (c) `t2v-verify-checkpoint-torch` on phase 4's
+     pipeline with --smoke (exit 0, no K1 launch: 256 tokens take plain
+     attention) and on phase 19's UNet `.pt` (exit 0, every pair matched),
+     then two planted faults that must exit 1 naming their tensor: the
+     VAE dir with CUT_TENSOR cut by a row, and the `.pt` with two pairs
+     swapped (the reorder diagnosis).  Each report is printed.
 The last two lines are the kernels record and the device record (JSON).
 K1, K2 and K3 run on two routes (ops/flash_attention.py::flash_route):
 `sm90` (csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dkv_sm90.cu,
@@ -370,10 +394,11 @@ SPLIT_PARAM_RTOL = 1e-2
 # models' dropout off (eval_train): the temporal convs' dropout draws from
 # each rank's own generator (seed + rank), so with it on a two-rank run is
 # another sample than one process, not the same run rounded otherwise.
-# The global batch is 2 in every run: train_batch_size x mesh_dp rows
-# split over every rank; (a) and (c) write the LoRA files and train states
-# but no pipeline, (b) writes its pipelines from rank 0's host copy of the
-# frozen weights.  Two steps each (over gloo on one card the fsdp gathers
+# The global batch is 2 in every run: train_batch_size x mesh_dp rows, a
+# rank holding those of its dp index (both in (b), whose two ranks are one
+# fsdp group, one in (a)); (a) and (c) write the LoRA files and train
+# states but no pipeline, (b) writes its pipelines from rank 0's host copy
+# of the frozen weights.  Two steps each (over gloo on one card the fsdp gathers
 # cost ~17 s a step)
 DIST_STEPS, DIST_CKPT = 2, 2
 _DIST = {"eval_train": True}
@@ -387,8 +412,9 @@ DIST_RUNS = {
 # (a) and (b) against (c):
 # * step 1's all-reduced gradient, before the clip and the optimizer:
 #   ||g - g_c|| within LOSS_BF16_RTOL of ||g_c|| over the whole tree and
-#   within GRAD_BF16_RTOL leaf by leaf.  The rows run at batch 1 there and
-#   at batch 2 in (c), so the bf16 products round otherwise.  The H100 run
+#   within GRAD_BF16_RTOL leaf by leaf.  (a)'s rows run at batch 1 and
+#   (c)'s at batch 2, so the bf16 products round otherwise; (b) runs (c)'s
+#   batch, and differs by FSDP2's order of the backward's sums.  The H100 run
 #   measured 3.6e-3 over the tree; leaf by leaf up to 3.15e-2, in 22 of the
 #   614 leaves with a gradient above 2e-2 (the bound first chosen, five
 #   bf16 units); the worst, a temporal attention of the mid block, has a
@@ -2644,9 +2670,8 @@ def dist_report(label, cfg, ranks, keys, backend):
     rank in a process group of `backend` over the run's ranks."""
     steps = cfg["max_train_steps"]
     world = len(ranks)
-    dp = cfg["mesh_dp"] if cfg["mesh_dp"] > 0 else world
-    local_keys = dict(keys, train_batch_size=cfg["train_batch_size"] * dp
-                      // world)
+    # a rank holds the train_batch_size rows of its dp index
+    local_keys = dict(keys, train_batch_size=cfg["train_batch_size"])
     expected = engine_expected(local_keys)
     want_batch = expected_batches(local_keys, expected, steps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2829,6 +2854,344 @@ def dist_checks(results, runs, c_record, c_grads):
     check_pipeline_dir(b[0]["out"], "[b_fsdp] final pipeline", False)
 
 
+# -- phase 21: eval and tooling at full width ---------------------------------
+
+# openai/clip-vit-base-patch32's published geometry, the checkpoint the
+# README names for clip_model_path: vision 768 x 12 layers, 12 heads, patch
+# 32 at 224; text 512 x 12 layers, 8 heads, 49,408 ids, eos_token_id 2
+# (argmax pooling); projection 512.  Random weights from SEED
+CLIP_B32_VISION = dict(hidden_size=768, intermediate_size=3072,
+                       num_hidden_layers=12, num_attention_heads=12,
+                       image_size=224, patch_size=32, projection_dim=512)
+CLIP_B32_TEXT = dict(vocab_size=49408, hidden_size=512,
+                     intermediate_size=2048, num_hidden_layers=12,
+                     num_attention_heads=8, max_position_embeddings=77,
+                     hidden_act="quick_gelu", eos_token_id=2)
+# the card's scorer against the CPU's (fp32, TF32 off in the scorer): the
+# relative L2 of the image and text embeddings and of the per-frame
+# similarities, unclamped; the clip score in CLIP-score units
+CLIP_REL_L2_TOL = 1e-3
+CLIP_SCORE_TOL = 5e-2
+# the planted faults of (c): the VAE tensor cut by a row, the LoRA pairs
+# swapped (pair 1 and the first later pair of another shape)
+CUT_TENSOR = "decoder.conv_in.weight"
+
+
+def write_clip_model(path):
+    """Phase 21's CLIP dual encoder at ViT-B/32 width, random weights drawn
+    on the card from SEED, written by the port as a transformers CLIPModel
+    directory with the minimal tokenizer beside it."""
+    from text_to_video_finetuning_tpu_torch.eval import clip_vision
+    from text_to_video_finetuning_tpu_torch.models.clip_text import (
+        CLIPTextConfig)
+    from text_to_video_finetuning_tpu_torch.models.init import init_weights_
+    from text_to_video_finetuning_tpu_torch.utils.tokenizer import (
+        write_minimal_clip_tokenizer)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    with torch.device("cuda"):
+        model = init_weights_(clip_vision.CLIPDualEncoder(
+            clip_vision.CLIPVisionConfig(**CLIP_B32_VISION),
+            CLIPTextConfig(**CLIP_B32_TEXT)), g)
+    with torch.no_grad():
+        cls = model.vision_model.embeddings.class_embedding
+        cls.normal_(0.0, cls.numel() ** -0.5, generator=g)
+    clip_vision.save_clip_model(model, path)
+    write_minimal_clip_tokenizer(path)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"CLIP ViT-B/32 dual encoder: {n} parameters, written to {path}")
+    return path
+
+
+def clip_score_run(pipeline_dir, root, clip_dir):
+    """21a: lora_training_config.yaml's keys on phase 4's pipeline and phase
+    16's cached latents, one step, the sample with CLIP-score validation;
+    returns (launches, the sampled frames, their prompt, the logged score,
+    the run directory)."""
+    import logging
+    from text_to_video_finetuning_tpu_torch.eval import clip_score
+    from text_to_video_finetuning_tpu_torch.training import engine
+
+    cfg = yaml_config("lora_yaml", pipeline_dir, f"{root}/clip_run",
+                      f"{root}/lora_latents.json", f"{root}/lora_latents",
+                      max_train_steps=1, checkpointing_steps=100,
+                      save_pretrained_model=False)
+    cfg["validation_data"].update(sample_preview=True,
+                                  compute_clip_score=True,
+                                  clip_model_path=clip_dir)
+    sampled, lines = [], []
+    real = clip_score.CLIPScorer.score_frames
+
+    def keep(self, frames, prompt):
+        sampled.append((frames, prompt))
+        return real(self, frames, prompt)
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+    handler = Lines()
+    logging.getLogger("t2v_torch").addHandler(handler)
+    clip_score.CLIPScorer.score_frames = keep
+    record = engine.RunRecord()
+    try:
+        torch.cuda.empty_cache()
+        zero_counts()                               # the path starts here
+        t0 = time.perf_counter()
+        out = engine.main(record=record, **cfg)
+        seconds = time.perf_counter() - t0
+        launches, by_batch = read_counts(), read_batch_counts()
+    finally:
+        clip_score.CLIPScorer.score_frames = real
+        logging.getLogger("t2v_torch").removeHandler(handler)
+    scored = [x for x in lines if "clip_score=" in x]
+    print(f"[21a] engine.main with compute_clip_score: {seconds:.1f} s, "
+          f"step {record.steps[0][0]:.3f} s loss {record.steps[0][1]:.6f}; "
+          f"logged {scored}")
+    if len(scored) != 1 or len(sampled) != 1:
+        fail(f"[21a] {len(scored)} clip_score lines, {len(sampled)} scored "
+             "samples, expected one")
+    score = float(scored[0].split("clip_score=")[1].split()[0])
+    if not (math.isfinite(score) and 0.0 <= score <= 100.0):
+        fail(f"[21a] clip_score {score} outside [0, 100]")
+    # the step's K1-K3 as phase 16 counts them, and the sample's K1: 25
+    # steps of a CFG batch of 2 x 16 frames, 5 spatial self-attentions at
+    # 1,024 tokens each
+    keys = YAML_PHASES["lora_yaml"][0]
+    expected = engine_expected(keys)
+    want = expected_batches(keys, expected, 1)
+    vd = keys["validation_data"]
+    sample_batch = 2 * vd["num_frames"]
+    sample_k1 = FLASH_PER_UNET * vd["num_inference_steps"]
+    want["K1"][sample_batch] = want["K1"].get(sample_batch, 0) + sample_k1
+    got = {k: launches[k] for k in ("K1", "K2", "K3", "K4", "K5")}
+    want_total = {k: sum(want[k].values()) for k in ("K1", "K2", "K3")}
+    want_total.update(K4=0, K5=0)
+    print(f"[21a] launches {got} by batch {by_batch} (expected "
+          f"{want_total} by batch {want}: the step's and the sample's "
+          f"{sample_k1} K1 at B={sample_batch})")
+    if got != want_total or by_batch != want:
+        fail(f"[21a] launches {got} by batch {by_batch}, expected "
+             f"{want_total} by batch {want}")
+    if any(launches[f"{k}_wmma"] or launches[f"{k}_sm90"] != got[k]
+           for k in ("K1", "K2", "K3")):
+        fail(f"[21a] K1-K3 not all on sm90: {launches}")
+    mp4s = os.listdir(os.path.join(out, "samples"))
+    if len(mp4s) != 1 or not mp4s[0].endswith(".mp4"):
+        fail(f"[21a] samples/ holds {mp4s}")
+    frames, prompt = sampled[0]
+    return launches, frames, prompt, score, out
+
+
+def clip_card_vs_cpu(clip_dir, frames, prompt, logged):
+    """21a: the sampled frames scored on the card and on the CPU, fp32."""
+    from text_to_video_finetuning_tpu_torch.eval import clip_score
+    out = {}
+    for device in ("cuda", "cpu"):
+        scorer = clip_score.CLIPScorer(clip_dir, device=device)
+        t0 = time.perf_counter()
+        img, txt = scorer.embed(frames, prompt)
+        sims = 100.0 * (img @ txt.T)[:, 0]
+        score = float(torch.clamp(sims, min=0.0).mean())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = (img.cpu(), txt.cpu(), sims.cpu(), score,
+                       time.perf_counter() - t0)
+        del scorer
+    gaps = {name: rel_l2(out["cuda"][i], out["cpu"][i])
+            for i, name in enumerate(("image", "text", "similarities"))}
+    sims = out["cpu"][2]
+    print(f"[21a] {len(frames)} frames {tuple(frames.shape)}: per-frame "
+          f"similarities (CPU, unclamped) {[round(float(x), 4) for x in sims]}"
+          f", {int((sims < 0).sum())} below 0; card vs CPU relative L2 "
+          f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (bound "
+          f"{CLIP_REL_L2_TOL}), clip score card {out['cuda'][3]:.6f} CPU "
+          f"{out['cpu'][3]:.6f} logged {logged} (bound {CLIP_SCORE_TOL}); "
+          f"embed {out['cuda'][4]:.3f} s on the card, {out['cpu'][4]:.3f} s "
+          "on the CPU")
+    if max(gaps.values()) > CLIP_REL_L2_TOL or \
+            abs(out["cuda"][3] - out["cpu"][3]) > CLIP_SCORE_TOL or \
+            abs(logged - out["cpu"][3]) > CLIP_SCORE_TOL:
+        fail(f"[21a] the card's CLIP differs from the CPU's: {gaps}, scores "
+             f"{out['cuda'][3]} / {out['cpu'][3]} / logged {logged}")
+
+
+def eval_cli_run(clip_dir, run_dir, root):
+    """21a: t2v-eval-torch on the sample's mp4, with --json_out."""
+    from text_to_video_finetuning_tpu_torch.eval import clip_score
+    json_out = f"{root}/clip_scores.json"
+    t0 = time.perf_counter()
+    status = clip_score.main(["--clip_model", clip_dir, "--video_dir",
+                              os.path.join(run_dir, "samples"),
+                              "--json_out", json_out])
+    with open(json_out) as f:
+        blob = json.load(f)
+    print(f"[21a] t2v-eval-torch: exit {status}, "
+          f"{time.perf_counter() - t0:.1f} s, {blob}")
+    if status != 0 or len(blob["clips"]) != 1 or \
+            "clip_score" not in blob["clips"][0]:
+        fail(f"[21a] t2v-eval-torch exit {status}, {blob}")
+
+
+def convert_run(pipeline_dir, root):
+    """21b: t2v-convert-compvis-torch --half --use_safetensors
+    --clip_checkpoint_path on phase 4's pipeline, every value held bit for
+    bit against its source cast to fp16; the outputs deleted after."""
+    from text_to_video_finetuning_tpu_torch.utils import checkpoint as ckpt
+    from text_to_video_finetuning_tpu_torch.utils import convert_compvis
+
+    unet_out, clip_out = f"{root}/unet_compvis.safetensors", \
+        f"{root}/clip_compvis.safetensors"
+    t0 = time.perf_counter()
+    status = convert_compvis.main([
+        "--model_path", pipeline_dir, "--checkpoint_path", unet_out,
+        "--clip_checkpoint_path", clip_out, "--half", "--use_safetensors"])
+    seconds = time.perf_counter() - t0
+    try:
+        src = ckpt.read_state_dict(f"{pipeline_dir}/unet")
+        got = ckpt.read_safetensors(unet_out)
+        keys = sorted(src)
+        tagged = convert_compvis.convert_unet_state_dict(
+            {k: torch.tensor([float(i)]) for i, k in enumerate(keys)})
+        names = {keys[int(t.reshape(-1)[0])]: name
+                 for name, t in tagged.items()}
+        bad = [k for k in got if not k.startswith(COMPVIS_PREFIXES[:5])]
+        unsqueezed, wrong = 0, []
+        for hf, name in names.items():
+            want = src[hf].to(torch.float16)
+            if "proj_" in hf and "bias" not in hf and \
+                    name not in convert_compvis._DO_NOT_UNSQUEEZE:
+                want = want[..., None]
+                unsqueezed += 1
+            if name not in got or got[name].dtype != torch.float16 or \
+                    not torch.equal(got[name], want):
+                wrong.append(name)
+        text_src = ckpt.read_state_dict(f"{pipeline_dir}/text_encoder")
+        text = ckpt.read_safetensors(clip_out)
+        fused = [k for k in text if k.endswith(("in_proj_weight",
+                                                "in_proj_bias"))]
+        for k in fused:
+            i = int(k.split("resblocks.")[1].split(".")[0])
+            pre = f"text_model.encoder.layers.{i}.self_attn"
+            leaf = "weight" if k.endswith("weight") else "bias"
+            want = torch.cat([text_src[f"{pre}.{c}_proj.{leaf}"]
+                              for c in "qkv"]).to(torch.float16)
+            if not torch.equal(text[k], want):
+                wrong.append(k)
+        size = (os.path.getsize(unet_out) + os.path.getsize(clip_out)) / 2**30
+        n_layers = sum(1 for k in text_src if k.endswith("layer_norm2.bias"))
+        print(f"[21b] t2v-convert-compvis-torch --half: exit {status}, "
+              f"{seconds:.1f} s, {size:.2f} GiB written; UNet {len(got)} keys"
+              f" of {len(src)}, {unsqueezed} proj weights unsqueezed, "
+              f"{len(bad)} outside the CompVis prefixes; CLIP v2.0 branch: "
+              f"{len(fused)} fused in_proj tensors over {n_layers} layers, "
+              f"{len(text)} keys; {len(wrong)} values not bit for bit")
+        if status != 0 or len(got) != len(src) or bad or wrong or \
+                len(fused) != 2 * n_layers or any(
+                    "q_proj" in k for k in text):
+            fail(f"[21b] conversion: exit {status}, {len(got)} of "
+                 f"{len(src)} keys, outside prefixes {bad[:3]}, wrong "
+                 f"{wrong[:3]}, {len(fused)} fused")
+    finally:
+        for path in (unet_out, clip_out):
+            if os.path.exists(path):
+                os.remove(path)
+
+
+def verify_run(label, argv):
+    """t2v-verify-checkpoint-torch on `argv`: (exit status, its output)."""
+    import contextlib
+    import io
+    from text_to_video_finetuning_tpu_torch.utils import verify_checkpoint
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        status = verify_checkpoint.main(argv)
+    text = buf.getvalue()
+    print(f"[21c] {label}: exit {status}, {time.perf_counter() - t0:.1f} s")
+    for line in text.splitlines():
+        print(f"[21c]   {line}")
+    return status, text
+
+
+def verify_phase(pipeline_dir, root):
+    """21c: the clean pipeline with --smoke and phase 19's `.pt`, then the
+    two planted faults, each of which must exit 1 naming its tensor."""
+    import re
+    zero_counts()
+    status, text = verify_run("pipeline --smoke", [pipeline_dir, "--smoke"])
+    k1 = read_counts()["K1"]
+    if status != 0 or "RESULT: OK" not in text or \
+            text.count("smoke forward ok on cuda") != 3 or k1:
+        fail(f"[21c] the clean pipeline: exit {status}, {k1} K1 launches "
+             "(the 16x16 smoke forward is plain attention)")
+    pt = f"{root}/inference_lora/{SEED}_unet.pt"
+    weights = torch.load(pt, map_location="cpu", weights_only=True)
+    status, text = verify_run("phase 19's UNet LoRA",
+                              [pt, "--model_path", pipeline_dir])
+    m = re.search(r"\((\d+) sites, rank", text)
+    if status != 0 or not m or int(m.group(1)) != len(weights) // 2:
+        fail(f"[21c] the LoRA .pt: exit {status}, {len(weights) // 2} pairs")
+
+    # planted fault 1: a copy of the VAE dir with one tensor cut by a row
+    from text_to_video_finetuning_tpu_torch.utils import checkpoint as ckpt
+    vae = f"{root}/vae_cut"
+    shutil.copytree(f"{pipeline_dir}/vae", vae)
+    path = f"{vae}/diffusion_pytorch_model.safetensors"
+    sd = ckpt.read_safetensors(path)
+    sd[CUT_TENSOR] = sd[CUT_TENSOR][:-1].clone()
+    ckpt.write_safetensors(sd, path)
+    status, text = verify_run("planted: the VAE dir with "
+                              f"{CUT_TENSOR} cut by a row", [vae])
+    shutil.rmtree(vae)
+    if status != 1 or f"SHAPE mismatch at {CUT_TENSOR}" not in text:
+        fail(f"[21c] the cut VAE tensor: exit {status}, not named")
+
+    # planted fault 2: the .pt with pair 1 and a later pair of another
+    # shape swapped
+    shapes = [tuple(w.shape) for w in weights[0::2]]
+    j = next(i for i in range(2, len(shapes)) if shapes[i] != shapes[1])
+    weights[2:4], weights[2 * j:2 * j + 2] = (weights[2 * j:2 * j + 2],
+                                              weights[2:4])
+    swapped = f"{root}/swapped_unet.pt"
+    torch.save(weights, swapped)
+    status, text = verify_run(f"planted: the .pt with pairs 1 and {j} "
+                              "swapped", [swapped, "--model_path",
+                                          pipeline_dir])
+    os.remove(swapped)
+    if status != 1 or "first 1 pairs align, then: pair 1 vs site" \
+            not in text:
+        fail(f"[21c] the swapped .pt: exit {status}, no reorder diagnosis")
+
+
+def eval_phase(pipeline_dir, root):
+    """Phase 21: eval and tooling at full width.  (a) the engine with
+    CLIP-score validation on a ViT-B/32 CLIP, the card's scores against
+    the CPU's, t2v-eval-torch on the sample; (b) t2v-convert-compvis-torch;
+    (c) t2v-verify-checkpoint-torch on clean and planted-fault inputs.
+    Returns the launches of (a)'s engine run."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    t21 = time.perf_counter()
+    laps = {}
+    clip_dir = write_clip_model(f"{root}/clip_b32")
+    launches, frames, prompt, score, run_dir = clip_score_run(
+        pipeline_dir, root, clip_dir)
+    clip_card_vs_cpu(clip_dir, frames, prompt, score)
+    eval_cli_run(clip_dir, run_dir, root)
+    shutil.rmtree(f"{root}/clip_run", ignore_errors=True)
+    torch.cuda.empty_cache()
+    laps["a"] = time.perf_counter() - t21
+    convert_run(pipeline_dir, root)
+    laps["b"] = time.perf_counter() - t21 - laps["a"]
+    verify_phase(pipeline_dir, root)
+    laps["c"] = time.perf_counter() - t21 - laps["a"] - laps["b"]
+    print(f"[21] ({smi}) seconds: (a) {laps['a']:.1f}, (b) {laps['b']:.1f}, "
+          f"(c) {laps['c']:.1f}, phase {time.perf_counter() - t21:.1f}")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank-worker"]:
         return rank_worker(sys.argv[2])
@@ -2963,6 +3326,12 @@ def main() -> int:
     dist = dist_phase(pipeline_dir, workdir.name)
     by_path["dp_lora"], by_path["fsdp_lora"] = dist["a_dp"], dist["b_fsdp"]
     by_path["one_rank_nccl_lora"] = dist["c_one"]
+    torch.cuda.empty_cache()
+
+    lap("21")
+    # 21. eval and tooling: CLIP-score validation in the engine,
+    # t2v-eval-torch, t2v-convert-compvis-torch, t2v-verify-checkpoint-torch
+    by_path["clip_score_lora"] = eval_phase(pipeline_dir, workdir.name)
     workdir.cleanup()
 
     lap("records")

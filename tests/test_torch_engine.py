@@ -311,16 +311,24 @@ def test_nonfinite_micro_batch_is_skipped(tiny_pipeline_dir, tiny_video,
     assert [s["notfinite_drops"] for s in recorder] == [0, 1, 1, 1]
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(mesh_tp=2), "5b"),
-    (dict(mesh_sp=2), "5b"),
-    (dict(validation_data=dict(compute_clip_score=True)), "6"),
-], ids=["mesh_tp", "mesh_sp", "clip_score"])
+@pytest.mark.parametrize("option,error,match", [
+    (dict(mesh_tp=2), NotImplementedError, "ROADMAP Queue 1 item 5b$"),
+    (dict(mesh_sp=2), NotImplementedError, "ROADMAP Queue 1 item 5b$"),
+    # the JAX engine's early errors (engine.py:658-674): CLIP-score
+    # validation with no CLIP model dir, or one without a config.json
+    (dict(validation_data=dict(compute_clip_score=True)), ValueError,
+     "requires validation_data.clip_model_path"),
+    (dict(validation_data=dict(compute_clip_score=True,
+                               clip_model_path="{empty}")), ValueError,
+     "no config.json"),
+], ids=["mesh_tp", "mesh_sp", "clip_score", "clip_score_no_config"])
 def test_unported_options_are_refused_before_the_run(tiny_pipeline_dir,
                                                      tiny_video, tmp_path,
-                                                     option, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}$"):
+                                                     option, error, match):
+    empty = tmp_path / "not_a_clip_model"
+    empty.mkdir()
+    option = json.loads(json.dumps(option).replace("{empty}", str(empty)))
+    with pytest.raises(error, match=match):
         engine.main(device="cpu", **minimal_config(
             tiny_pipeline_dir, tiny_video, str(tmp_path / "o"), **option))
     assert not os.path.exists(tmp_path / "o")    # refused before it loads

@@ -3,8 +3,9 @@ tests/torch_dist_worker.py) against one process at the same global batch,
 on the conftest's tiny pipeline and latents cached from a seed:
 
 * `mesh_dp=2` (`engine.main`) and `mesh_dp=1, mesh_fsdp=2` (through
-  `cli.train_main` on a YAML) of a hybrid LoRA config (UNet and text LoRA,
-  a few UNet tensors finetuned, the models' dropout off by `eval_train`):
+  `cli.train_main` on a YAML, each rank holding both rows of the global
+  batch 2) of a hybrid LoRA config (UNet and text LoRA, a few UNet tensors
+  finetuned, the models' dropout off by `eval_train`):
   each step's loss and the final trainable tensors within the goldens'
   fp32 tolerance of the one-process run, every rank's train state equal bit
   for bit, rank 0 alone writing files, and under fsdp each rank holding
@@ -14,11 +15,16 @@ on the conftest's tiny pipeline and latents cached from a seed:
   equal; a NaN in rank 1's rows makes both ranks drop the update, their
   states and guard counters equal; a resume on two ranks from the run's
   checkpoint-2 retraces it bit for bit, each rank's default generator too;
+* `mesh_fsdp=2` at the shipped `train_batch_size` 1, dropout on: both
+  ranks hold the one row and draw the same dropout masks (seeded
+  `seed + dp index`), and follow one process at batch 1 (losses, step 1's
+  gradients, the trainable tensors); the ranks of a dp=2 x fsdp=2 mesh
+  against the JAX `batch_sharding` rows;
 * SIGTERM on one rank stops both at the same step, with one checkpoint;
-* each rank's item indices, and a fresh latent cache's `host{r}` layout
+* each rank's item indices, and a fresh latent cache's `host{d}` layout
   and padding, against the JAX `DataLoader` shards and
   `handle_cache_latents` with `jax.process_count` / `process_index` set to
-  the world and the rank.
+  dp and the dp index.
 """
 
 import glob
@@ -32,7 +38,7 @@ import pytest
 import torch
 import yaml
 
-from torch_dist_worker import run_ranks
+from torch_dist_worker import keep_first_grads, run_ranks
 from text_to_video_finetuning_tpu_torch.data import native
 from text_to_video_finetuning_tpu_torch.training import engine
 from text_to_video_finetuning_tpu_torch.utils import train_state_io
@@ -229,6 +235,92 @@ def test_fsdp_shards_the_frozen_models(runs, one_process):
         < 0.05 * one_process.frozen_bytes
 
 
+# -- fsdp at the shipped batch size ------------------------------------------
+
+# train_batch_size 1 as every configs/v2 YAML ships it, the models' and the
+# LoRA dropout on: an fsdp group shares its row and its masks, so the two
+# ranks are one process at batch 1 with its frozen weights sharded
+SHIPPED = dict(train_batch_size=1, max_train_steps=3, eval_train=False,
+               lora_unet_dropout=0.1, lora_text_dropout=0.1)
+
+
+@pytest.fixture(scope="module")
+def one_process_b1(tiny_pipeline_dir, data, tmp_path_factory):
+    record, grads = engine.RunRecord(), {}
+    undo = keep_first_grads(engine, grads)
+    try:
+        engine.main(device="cpu", record=record, **lora_config(
+            tiny_pipeline_dir, data, str(tmp_path_factory.mktemp("one1")),
+            **SHIPPED))
+    finally:
+        undo()
+    return record, grads
+
+
+@pytest.fixture(scope="module")
+def fsdp_b1_run(tiny_pipeline_dir, data, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("fsdp1")
+    return run_ranks("engine", 2, tmp, {
+        "config": lora_config(tiny_pipeline_dir, data, str(tmp / "out"),
+                              mesh_dp=1, mesh_fsdp=2, **SHIPPED),
+        "masks": True, "grads": True})
+
+
+def test_fsdp_at_train_batch_size_1_follows_one_process(fsdp_b1_run,
+                                                         one_process_b1):
+    record, want_grads = one_process_b1
+    want = [loss for _, loss in record.steps]
+    assert len(want) == 3 and want_grads
+    for r in fsdp_b1_run:
+        np.testing.assert_allclose([loss for _, loss in r["steps"]], want,
+                                   atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose([m["grad_norm"] for m in r["metrics"]],
+                                   record.grad_norms, atol=ATOL, rtol=RTOL)
+        assert sorted(r["grads"]) == sorted(want_grads)
+        for k, g in want_grads.items():
+            np.testing.assert_allclose(r["grads"][k].numpy(), g.numpy(),
+                                       atol=ATOL, rtol=RTOL, err_msg=k)
+    ref = tensors(record.final["trainable"])
+    got = tensors(fsdp_b1_run[0]["final"]["trainable"])
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
+                                   atol=ATOL, rtol=RTOL, err_msg=k)
+    assert fsdp_b1_run[0]["digest"] == fsdp_b1_run[1]["digest"]
+
+
+def test_temporal_dropout_masks_equal_within_an_fsdp_group(fsdp_b1_run):
+    m0, m1 = fsdp_b1_run[0]["masks"], fsdp_b1_run[1]["masks"]
+    assert len(m0) > 0
+    assert m0 == m1
+
+
+def test_dp2_fsdp2_ranks_take_the_rows_of_jax_batch_sharding():
+    """dp=2 x fsdp=2 at train_batch_size 1: ranks 0, 1 hold row 0 and
+    ranks 2, 3 row 1, as the JAX mesh's devices at (dp, fsdp) hold them."""
+    from text_to_video_finetuning_tpu.parallel.mesh import (
+        MeshConfig as JMeshConfig, make_mesh as jmake_mesh)
+    from text_to_video_finetuning_tpu.parallel.sharding import (
+        batch_sharding)
+    from text_to_video_finetuning_tpu_torch.parallel import (
+        MeshConfig, local_rows, mesh_coords, mesh_shape)
+
+    shape = mesh_shape(MeshConfig(dp=2, fsdp=2), 4)
+    global_batch = 1 * shape["dp"]
+    mesh = jmake_mesh(JMeshConfig(dp=2, fsdp=2), jax.devices()[:4])
+    rows = batch_sharding(mesh).devices_indices_map((global_batch, 3))
+    got = []
+    for rank in range(4):
+        dp_index, fsdp_index = mesh_coords(rank, shape)
+        start, n = local_rows(global_batch, dp_index, shape["dp"])
+        want = rows[mesh.devices[dp_index, fsdp_index, 0, 0]][0]
+        assert (start, start + n) == want.indices(global_batch)[:2]
+        got.append((dp_index, fsdp_index, start, n))
+    assert got == [(0, 0, 0, 1), (0, 1, 0, 1), (1, 0, 1, 1), (1, 1, 1, 1)]
+    with pytest.raises(ValueError, match="dp=2"):
+        local_rows(3, 0, 2)
+
+
 # -- dropout on, a NaN on one rank, and the resume -----------------------------
 
 @pytest.fixture(scope="module")
@@ -363,7 +455,7 @@ def test_fresh_cache_shards_by_rank_as_jax(tiny_pipeline_dir, tmp_path,
         ours_dir, theirs_dir = tmp_path / f"p{rank}", tmp_path / f"j{rank}"
         ours = engine.handle_cache_latents(
             TrainConfig(cache_latents=True, seed=1), str(ours_dir), loader,
-            vae, torch.device("cpu"), rank=rank, world=2, global_batch=2)
+            vae, torch.device("cpu"), dp_index=rank, dp=2, global_batch=2)
         monkeypatch.setattr(jax, "process_count", lambda: 2)
         monkeypatch.setattr(jax, "process_index", lambda r=rank: r)
         theirs = jengine.handle_cache_latents(
@@ -386,3 +478,32 @@ def test_fresh_cache_shards_by_rank_as_jax(tiny_pipeline_dir, tmp_path,
         assert prompts == ([f"item {i}" for i in (0, 2, 4)] if rank == 0
                            else ["item 1", "item 3", "item 3"])
         assert ours.batch_size == theirs.batch_size == 1
+
+
+def test_fresh_cache_under_fsdp_is_written_once_per_dp_index(
+        tiny_pipeline_dir, tmp_path, monkeypatch):
+    """mesh_fsdp=2, dp=1: the group's first rank encodes and writes every
+    item, then waits at the barrier; the second writes nothing and reads
+    the same cache after the barrier."""
+    from text_to_video_finetuning_tpu_torch.config import TrainConfig
+    from text_to_video_finetuning_tpu_torch.utils import checkpoint as pckpt
+
+    ds = Items(3)
+    loader = type("Loader", (), {"dataset": ds, "bucket_batching": False})
+    vae = pckpt.load_vae(os.path.join(tiny_pipeline_dir, "vae"), "cpu")
+    writes, real_write = [], native.cache_write_item
+    monkeypatch.setattr(native, "cache_write_item",
+                        lambda path, *a: writes.append(path)
+                        or real_write(path, *a))
+    events, loaders = [], []
+    for fsdp_index in range(2):
+        loaders.append(engine.handle_cache_latents(
+            TrainConfig(cache_latents=True, seed=1), str(tmp_path), loader,
+            vae, torch.device("cpu"), dp_index=0, dp=1, global_batch=1,
+            write=fsdp_index == 0,
+            barrier=lambda i=fsdp_index: events.append((i, len(writes)))))
+    assert events == [(0, 3), (1, 3)]
+    assert sorted(os.path.basename(w) for w in writes) == [
+        f"cached_{i}.t2vc" for i in range(3)]
+    assert [[loaders[i].dataset[j]["text_prompt"] for j in range(3)]
+            for i in range(2)] == [[f"item {j}" for j in range(3)]] * 2

@@ -13,8 +13,9 @@ card.
   walk imports the modules that came with the LoRA flavours, 8-bit AdamW
   and the split step.
 * `load_unet`, `load_vae`, `load_text_encoder`, `engine.main`,
-  `initialize_pipeline`, `inference`, `T2VServer`, LaMa's loaders and the
-  CLI entries default to "cuda"; the CPU tests pass device="cpu";
+  `initialize_pipeline`, `inference`, `T2VServer`, LaMa's loaders, the CLI
+  entries, the CLIP loader and scorer and the verifier's smoke forward
+  default to "cuda"; the CPU tests pass device="cpu";
 * the modules that the card's machine must import without cv2, yaml, PIL
   or tensorboardX do.
 """
@@ -88,7 +89,9 @@ def test_torch_names_copy_agrees_with_the_jax_package():
 NEW_MODULES = ["ops.quantized_adam", "utils.convert_compvis", "lora.formats",
                "lora.embeds", "lora.merge", "models.lama", "serving",
                "serving.server", "pipelines.inference", "utils.tokenizer",
-               "cli", "parallel", "parallel.mesh", "parallel.sharding"]
+               "cli", "parallel", "parallel.mesh", "parallel.sharding",
+               "eval", "eval.clip_vision", "eval.clip_score",
+               "utils.verify_checkpoint"]
 
 
 def test_new_modules_are_walked_and_standalone():
@@ -183,9 +186,12 @@ def test_minimal_tokenizer_writer_matches_the_jax_package(tmp_path):
     "load_unet", "load_vae", "load_text_encoder", "engine.main",
     "cli.train_main", "initialize_pipeline", "inference", "T2VServer",
     "load_lama", "inpaint_watermark", "cli.inference_main",
-    "cli.serve_main", "cli.bake_lora_main"])
+    "cli.serve_main", "cli.bake_lora_main", "load_clip_model", "CLIPScorer",
+    "evaluate_directory", "audit_model_dir"])
 def test_loaders_default_to_the_card(loader):
     from text_to_video_finetuning_tpu_torch import cli
+    from text_to_video_finetuning_tpu_torch.eval import clip_score
+    from text_to_video_finetuning_tpu_torch.utils import verify_checkpoint
     from text_to_video_finetuning_tpu_torch.models import lama
     from text_to_video_finetuning_tpu_torch.pipelines import inference
     from text_to_video_finetuning_tpu_torch.serving import T2VServer
@@ -203,7 +209,12 @@ def test_loaders_default_to_the_card(loader):
               "initialize_pipeline": inference.initialize_pipeline,
               "inference": inference.inference, "T2VServer": T2VServer,
               "load_lama": lama.load_lama,
-              "inpaint_watermark": lama.inpaint_watermark}.get(loader) or \
+              "inpaint_watermark": lama.inpaint_watermark,
+              "load_clip_model": clip_score.load_clip_model,
+              "CLIPScorer": clip_score.CLIPScorer,
+              "evaluate_directory": clip_score.evaluate_directory,
+              "audit_model_dir": verify_checkpoint.audit_model_dir,
+              }.get(loader) or \
             getattr(checkpoint, loader)
         default = inspect.signature(fn).parameters["device"].default
     assert default == "cuda"
@@ -226,6 +237,10 @@ import text_to_video_finetuning_tpu_torch.cli as cli
 import text_to_video_finetuning_tpu_torch.serving.server as server
 import text_to_video_finetuning_tpu_torch.models.lama as lama
 import text_to_video_finetuning_tpu_torch.pipelines.inference as inference
+import text_to_video_finetuning_tpu_torch.eval.clip_score as clip_score
+import text_to_video_finetuning_tpu_torch.utils.verify_checkpoint as verify
+import text_to_video_finetuning_tpu_torch.utils.convert_compvis as convert
+assert engine.check_supported and clip_score.CLIPScorer
 cfg = config.train_config_from_dict({"mixed_precision": "fp16"})
 config.save_config(cfg, sys.argv[1])
 assert open(sys.argv[1]).read().startswith("{")
@@ -245,9 +260,11 @@ sys.exit(1 if loaded else 0)
 
 def test_engine_modules_import_without_cv2_yaml_pil_tensorboardx(tmp_path):
     """The card's machine lacks some of cv2, yaml, PIL and tensorboardX:
-    `config.py`, `data/video.py`, `engine.py`, `cli.py`, the server, LaMa
-    and the inference pipeline import without them, `save_config` writes its flow-style YAML, and the engine runs
-    without a tensorboard writer."""
+    `config.py`, `data/video.py`, `engine.py` (with its CLIP-score hook),
+    `cli.py`, the server, LaMa, the inference pipeline, the scorer, the
+    verifier and the converter import without them, `save_config` writes
+    its flow-style YAML, and the engine runs without a tensorboard
+    writer."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _HIDDEN, str(tmp_path / "c.yaml"),

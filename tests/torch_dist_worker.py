@@ -94,13 +94,53 @@ def state_digest(snap) -> str:
     return h.hexdigest()
 
 
+def keep_first_grads(engine, store):
+    """Patch `engine`'s step makers so that the first step's gradients, as
+    the optimizer receives them (after the all-reduce, before the clip),
+    land in `store` as {path: tensor}; returns the function that undoes
+    the patch."""
+    from text_to_video_finetuning_tpu_torch.training.optim import leaves
+
+    def paths(tree, prefix=""):
+        if isinstance(tree, torch.Tensor):
+            return [prefix]
+        return [p for k in tree for p in paths(tree[k], f"{prefix}/{k}")]
+
+    def wrap(make):
+        def make_keeping(cfg, optimizer):
+            step, real = make(cfg, optimizer), optimizer.step
+            current = []
+
+            def optimizer_step(*a, **kw):
+                if not store:
+                    trainable = current[0].trainable
+                    store.update({k: t.grad.detach().clone() for k, t in zip(
+                        paths(trainable), leaves(trainable))})
+                return real(*a, **kw)
+            optimizer.step = optimizer_step
+
+            def keeping(state, batch):
+                current[:] = [state]
+                return step(state, batch)
+            return keeping
+        return make_keeping
+    saved = engine.make_train_step, engine.make_split_train_step
+    engine.make_train_step = wrap(saved[0])
+    engine.make_split_train_step = wrap(saved[1])
+
+    def undo():
+        engine.make_train_step, engine.make_split_train_step = saved
+    return undo
+
+
 # -- targets ----------------------------------------------------------------
 
 def _engine(rank, world, args):
     """One engine run (`engine.main`, or `cli.train_main` on a YAML when
     args["cli"]) with its RunRecord; every step's metrics; with
     args["poison"] = (rank, step) that rank's rows at that micro-step
-    multiplied by NaN; with args["sigterm"] = (rank, n) a SIGTERM to that
+    multiplied by NaN; with args["grads"] step 1's gradients
+    (`keep_first_grads`); with args["sigterm"] = (rank, n) a SIGTERM to that
     rank after its n-th step; with args["masks"] a digest of each temporal
     dropout mask; and every file the rank opened for writing under
     args["watch"]."""
@@ -154,13 +194,16 @@ def _engine(rank, world, args):
             return real_open(file, mode, *a, **kw)
         builtins.open = watched_open
 
+    grads = {}
+    if args.get("grads"):
+        keep_first_grads(engine, grads)
     record = engine.RunRecord()
     if args.get("cli"):
         out = cli.train_main(["--config", args["cli"], "--device", "cpu"],
                              record=record)
     else:
         out = engine.main(device="cpu", record=record, **args["config"])
-    return {"out": out, "metrics": metrics, "masks": masks,
+    return {"out": out, "metrics": metrics, "masks": masks, "grads": grads,
             "writes": writes, "steps": record.steps,
             "initial": record.initial, "final": record.final,
             "digest": state_digest(record.final),

@@ -136,6 +136,17 @@ class CLIPTextTransformer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(config.hidden_size,
                                              eps=config.layer_norm_eps)
 
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """input_ids (B, S) -> last_hidden_state (B, S, hidden)."""
+        s = input_ids.shape[1]
+        hidden_states = self.embeddings(input_ids)
+        causal_mask = torch.triu(torch.full(
+            (s, s), -1e9, dtype=torch.float32, device=input_ids.device),
+            diagonal=1)[None, None]
+        for layer in self.encoder.layers:
+            hidden_states = layer(hidden_states, causal_mask)
+        return self.final_layer_norm(hidden_states)
+
 
 class CLIPTextModel(nn.Module):
     def __init__(self, config: CLIPTextConfig = CLIP_MS_TEXT_CONFIG):
@@ -145,12 +156,4 @@ class CLIPTextModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids (B, S) -> last_hidden_state (B, S, hidden)."""
-        tm = self.text_model
-        s = input_ids.shape[1]
-        hidden_states = tm.embeddings(input_ids)
-        causal_mask = torch.triu(torch.full(
-            (s, s), -1e9, dtype=torch.float32, device=input_ids.device),
-            diagonal=1)[None, None]
-        for layer in tm.encoder.layers:
-            hidden_states = layer(hidden_states, causal_mask)
-        return tm.final_layer_norm(hidden_states)
+        return self.text_model(input_ids)

@@ -6,7 +6,8 @@ The reference distributes by data parallelism only, Accelerate DDP over
 NCCL (reference train.py:518-523).  The port runs one process per rank
 under `torchrun` (`python -m torch.distributed.run`); its mesh is a
 `torch.distributed.device_mesh.DeviceMesh` over the whole world with the
-dims ("dp", "fsdp"): the batch rows split over every rank, the frozen
+dims ("dp", "fsdp"), rank = dp index x fsdp + fsdp index (`mesh_coords`):
+the batch rows split over "dp" and replicated over "fsdp", the frozen
 models sharded over "fsdp" (parallel/sharding.py).  "tp" and "sp" are not
 ported (ROADMAP Queue 1 item 5b) and raise before anything loads.
 
@@ -67,6 +68,13 @@ def mesh_shape(config: MeshConfig, n: int) -> Dict[str, int]:
             f"sp={config.sp} needs {dp * rest} devices, have {n}")
     return {"dp": dp, "fsdp": config.fsdp, "tp": config.tp,
             "sp": config.sp}
+
+
+def mesh_coords(rank: int, shape: Dict[str, int]) -> Tuple[int, int]:
+    """(dp index, fsdp index) of `rank` in a mesh of `shape` (`mesh_shape`),
+    in `make_mesh`'s row-major order: the ranks of one fsdp group are
+    consecutive."""
+    return divmod(rank, shape["fsdp"])
 
 
 def make_mesh(config: MeshConfig = MeshConfig(),

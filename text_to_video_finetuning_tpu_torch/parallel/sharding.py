@@ -1,7 +1,8 @@
 """Placement over the mesh (port of text_to_video_finetuning_tpu/parallel/
 sharding.py, as the JAX engine uses it, training/engine.py:581-607): the
 trainable state replicated, the frozen UNet and CLIP sharded over "fsdp",
-the VAE replicated, the batch rows split over the ranks.
+the VAE replicated, the batch rows split over "dp" and replicated over
+"fsdp" (JAX `batch_sharding`, sharding.py:74-86).
 
 * `shard_frozen`: FSDP2 `fully_shard` on each UNet down / mid / up block
   and each CLIP encoder layer, then on the root, over the mesh's "fsdp"
@@ -13,7 +14,8 @@ the VAE replicated, the batch rows split over the ranks.
   parameters and FSDP2 never sees them.
 * `all_reduce_grads`: one mean over the world of every trainable gradient,
   in fp32 buckets, with a few scalars (the losses) riding in the last one.
-* `local_rows`: a rank's slice of the global batch.
+* `local_rows`: a dp index's slice of the global batch, which every rank
+  of that dp index's fsdp group holds.
 * `frozen_bytes`: what a rank holds of the frozen models.
 
 The JAX tp rules (`_TP_COL` / `_TP_ROW`) wait for ROADMAP Queue 1 item 5b.
@@ -32,15 +34,16 @@ from ..training.optim import leaves
 BUCKET_ELEMENTS = 16 * 2**20
 
 
-def local_rows(global_batch: int, rank: int, world: int) -> Tuple[int, int]:
-    """(start, count) of `rank`'s rows of a global batch split evenly over
-    `world` ranks; refuses a batch that does not divide."""
-    if global_batch % world:
+def local_rows(global_batch: int, dp_index: int, dp: int) -> Tuple[int, int]:
+    """(start, count) of the rows of dp index `dp_index` in a global batch
+    split evenly over the `dp` extent; the ranks of one fsdp group share
+    them.  Refuses a batch that does not split over dp."""
+    if global_batch % dp:
         raise ValueError(
-            f"global batch size {global_batch} is not divisible by the "
-            f"{world} ranks: every rank takes an equal slice of it")
-    n = global_batch // world
-    return rank * n, n
+            f"global batch size {global_batch} is not divisible by dp={dp}:"
+            f" every dp index takes an equal slice of it")
+    n = global_batch // dp
+    return dp_index * n, n
 
 
 def _units(module: nn.Module) -> List[nn.Module]:
@@ -100,7 +103,9 @@ def all_reduce_grads(trainable, group=None,
                      extra: Optional[torch.Tensor] = None
                      ) -> Tuple[Optional[torch.Tensor], int]:
     """Replace the `.grad` of every tensor of `trainable` (a tree of dicts)
-    by its mean over the ranks of `group` (the world by default): the
+    by its mean over the ranks of `group` (the world by default).  The
+    ranks of one fsdp group hold the same rows, so over a (dp, fsdp) world
+    the world mean is the mean over dp, the global batch's gradient.  The
     gradients are packed into fp32 buckets of at most BUCKET_ELEMENTS,
     each all-reduced (sum) once and divided by the world size.  A tensor
     without a gradient counts as zero.  `extra`, a 1-D tensor of scalars,

@@ -39,17 +39,22 @@ Several ranks (the JAX engine with `mesh_dp` / `mesh_fsdp` above 1): under
 `torchrun` each rank joins the process group (`parallel/mesh.py::
 init_distributed`: NCCL on the card, gloo on the CPU, unless `backend`
 names one; `device="cuda"` gives rank r `cuda:{LOCAL_RANK}`).  The global
-batch is `train_batch_size` x dp, split over all dp x fsdp ranks; the
-loader and a pre-built latent cache are sharded by rank, a fresh cache is
-encoded by stride into `cached_latents/host{rank}` and padded to a common
-count (JAX :115-188).  Every rank draws the whole global batch's noise,
-timesteps and posterior noise from the same step generator and keeps its
-rows, so a dp run follows a one-process run at the same global batch to
-float rounding; the UNet's own dropout draws from the default generator,
-seeded `seed + rank`.  After the backward, the gradients and the losses
-are averaged over the world (`parallel/sharding.py::all_reduce_grads`)
-before the optimizer's non-finite guard, which so decides for all ranks,
-as in JAX where the gradient is global.  `mesh_fsdp` shards the frozen
+batch is `train_batch_size` x dp: a rank takes the `train_batch_size` rows
+of its dp index, which the ranks of its fsdp group share (JAX shards the
+batch over "dp" and replicates it over "fsdp", parallel/sharding.py::
+batch_sharding); the loader and a pre-built latent cache are sharded by dp
+index, a fresh cache is encoded by stride into
+`cached_latents/host{dp index}` by the group's first rank and padded to a
+common count (JAX :115-188).  Every rank draws the whole global batch's
+noise, timesteps and posterior noise from the same step generator and
+keeps its rows, so a dp run follows a one-process run at the same global
+batch to float rounding; the UNet's own dropout draws from the default
+generator, seeded `seed + dp index`, so one fsdp group draws the same
+masks.  After the backward, the gradients and the losses are averaged
+over the world (`parallel/sharding.py::all_reduce_grads`; an fsdp group's
+ranks hold the same rows, so that is the mean over dp) before the
+optimizer's non-finite guard, which so decides for all ranks, as in JAX
+where the gradient is global.  `mesh_fsdp` shards the frozen
 UNet and CLIP over the ranks (`shard_frozen`); rank 0 keeps a host copy of
 their weights for its saves, as the JAX engine keeps its host trees.
 Rank 0 alone writes the config, the pipelines, the LoRA files, the train
@@ -57,8 +62,11 @@ state (with every rank's default generator) and tensorboard; every rank
 waits at a barrier after each save.  The SIGTERM decision rides in the same all-reduce, so every
 rank stops at the same step.  `mesh_tp` and `mesh_sp` above 1 raise.
 
-Options not ported yet raise `NotImplementedError` naming their ROADMAP
-item, before anything loads.
+`validation_data.compute_clip_score` scores each sample against its
+prompt with the CLIP model at `clip_model_path` (`eval/clip_score.py`,
+built at the first sample on the engine's device, by rank 0 alone) and
+logs `clip_score=... at step N`.  Mesh axes not ported yet raise
+`NotImplementedError` naming their ROADMAP item, before anything loads.
 """
 
 from __future__ import annotations
@@ -85,8 +93,8 @@ from ..data.video import export_to_video
 from ..lora.handler import LoraHandler
 from ..lora.overlay import collapse_lora
 from ..parallel import (MeshConfig, all_reduce_grads, frozen_bytes,
-                        init_distributed, local_rows, make_mesh, mesh_shape,
-                        refuse_unported, shard_frozen)
+                        init_distributed, local_rows, make_mesh, mesh_coords,
+                        mesh_shape, refuse_unported, shard_frozen)
 from ..pipelines.text_to_video import TextToVideoSDPipeline
 from ..schedulers.ddpm import DDPMScheduler
 from ..utils import checkpoint as ckpt
@@ -106,17 +114,24 @@ logger = logging.getLogger("t2v_torch")
 _BACKENDS = {"auto": "auto", "xla": "plain", "pallas": "flash"}
 
 
-def _refuse(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                              f"item {item}")
-
-
 def check_supported(cfg: TrainConfig):
-    """Refuse, before anything is loaded, the options the port does not
-    run yet, each naming its ROADMAP Queue 1 item."""
-    if (cfg.validation_data or {}).get("compute_clip_score"):
-        _refuse("CLIP-score validation (validation_data.compute_clip_score)",
-                6)
+    """Refuse, before anything is loaded or the run directory exists, the
+    mesh axes the port does not run yet (naming their ROADMAP Queue 1
+    item) and the validation options that could not run at step N."""
+    vd = cfg.validation_data or {}
+    if vd.get("compute_clip_score"):
+        # the scorer itself is built at the first sample (JAX :658-674)
+        clip_dir = vd.get("clip_model_path")
+        if not clip_dir:
+            raise ValueError(
+                "validation_data.compute_clip_score requires "
+                "validation_data.clip_model_path (a local transformers "
+                "CLIPModel dir, e.g. openai/clip-vit-base-patch32)")
+        if not os.path.isfile(os.path.join(clip_dir, "config.json")):
+            raise ValueError(
+                f"validation_data.clip_model_path={clip_dir!r} is not a "
+                "transformers CLIPModel dir (no config.json); download "
+                "one locally first (README: the port's eval and tooling)")
     refuse_unported(mesh_config(cfg))
     if (cfg.validation_data or {}).get("sample_preview"):
         try:
@@ -206,29 +221,33 @@ def should_sample(global_step, validation_steps, validation_data) -> bool:
 
 @torch.no_grad()
 def handle_cache_latents(cfg: TrainConfig, output_dir: str, loader,
-                         vae, device: torch.device, rank: int = 0,
-                         world: int = 1,
-                         global_batch: Optional[int] = None):
+                         vae, device: torch.device, dp_index: int = 0,
+                         dp: int = 1,
+                         global_batch: Optional[int] = None,
+                         write: bool = True, barrier=None):
     """reference train.py:266-314 (JAX :115-188): one VAE-encode pass over
     the dataset, cached to disk as `.t2vc` files, then a cached-latent
     loader (num_workers=0); or, with `cached_latent_dir`, a loader over
-    that shared cache, sharded by rank at load.  Every item is cached (the
-    reference assumes batch size 1, train.py:297).  Across ranks a fresh
-    cache is rank-local: rank r encodes items r, r + world, ... into
-    `cached_latents/host{r}` and repeats its last item up to
-    ceil(len / world), so every rank reads the same number of batches of
-    `global_batch / world` rows."""
+    that shared cache, sharded by dp index at load.  Every item is cached
+    (the reference assumes batch size 1, train.py:297).  Across dp indices
+    a fresh cache is local to each: dp index d encodes items d, d + dp, ...
+    into `cached_latents/host{d}` and repeats its last item up to
+    ceil(len / dp), so every rank reads the same number of batches of
+    `global_batch / dp` rows.  Only the rank with `write` (the first of its
+    fsdp group) writes; `barrier`, when given, runs before anyone reads."""
     if not cfg.cache_latents:
         return None
     global_batch = global_batch or cfg.train_batch_size
     if cfg.cached_latent_dir is not None:
         cache_dir = os.path.abspath(cfg.cached_latent_dir)
-        batch, shards = global_batch, (world, rank)
+        batch, shards = global_batch, (dp, dp_index)
+        write = False
     else:
         cache_dir = f"{output_dir}/cached_latents"
-        if world > 1:
-            cache_dir = f"{cache_dir}/host{rank}"
-        batch, shards = local_rows(global_batch, rank, world)[1], (1, 0)
+        if dp > 1:
+            cache_dir = f"{cache_dir}/host{dp_index}"
+        batch, shards = local_rows(global_batch, dp_index, dp)[1], (1, 0)
+    if write:
         os.makedirs(cache_dir, exist_ok=True)
         generator = torch.Generator(device).manual_seed(cfg.seed or 0)
         # the DATASET, not the padded loader, whose wrap-around pad would
@@ -236,12 +255,12 @@ def handle_cache_latents(cfg: TrainConfig, output_dir: str, loader,
         dataset = loader.dataset
         if len(dataset) == 0:
             raise ValueError("the dataset has no items to cache")
-        if rank >= len(dataset):
-            raise ValueError(f"rank {rank} received no dataset items to "
-                             f"cache (the dataset has {len(dataset)} items, "
-                             f"{world} ranks)")
+        if dp_index >= len(dataset):
+            raise ValueError(f"dp index {dp_index} received no dataset "
+                             f"items to cache (the dataset has "
+                             f"{len(dataset)} items, dp={dp})")
         ext, written = dnative.CACHE_EXT, 0
-        for idx in range(rank, len(dataset), world):
+        for idx in range(dp_index, len(dataset), dp):
             item = dataset[idx]
             px = torch.as_tensor(np.asarray(item["pixel_values"]),
                                  device=device)            # (F, C, H, W)
@@ -252,9 +271,11 @@ def handle_cache_latents(cfg: TrainConfig, output_dir: str, loader,
                 lat.float().cpu().numpy(), np.asarray(item["prompt_ids"]),
                 item["text_prompt"])
             written += 1
-        for pad in range(written, math.ceil(len(dataset) / world)):
+        for pad in range(written, math.ceil(len(dataset) / dp)):
             shutil.copyfile(f"{cache_dir}/cached_{written - 1}{ext}",
                             f"{cache_dir}/cached_{pad}{ext}")
+    if barrier is not None:
+        barrier()       # the cache is written before any rank lists it
     # keep the training loader's shape-grouped batching: cached items keep
     # their per-bucket (h, w), and stacking mixed shapes would fail
     return DataLoader(CachedDataset(cache_dir=cache_dir), batch_size=batch,
@@ -446,20 +467,18 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
                 == "nccl" else None)
 
     mark(None)
-    # the sizes first: a mesh that does not fit the world, or a global
-    # batch that does not split over it, fails before the run directory
+    # the sizes first: a mesh that does not fit the world fails before the
+    # run directory.  A rank takes its dp index's rows of the global batch
+    # and shares them with its fsdp group
     shape = mesh_shape(mesh_config(cfg), world)
-    global_batch = cfg.train_batch_size * shape["dp"]
-    if global_batch % world:
-        raise ValueError(
-            f"global batch size {global_batch} (train_batch_size "
-            f"{cfg.train_batch_size} x dp {shape['dp']}) must be divisible "
-            f"by the {world} ranks: every rank takes an equal slice of it")
-    row_start, local_batch = local_rows(global_batch, rank, world)
+    dp = shape["dp"]
+    dp_index, fsdp_index = mesh_coords(rank, shape)
+    global_batch = cfg.train_batch_size * dp
+    row_start, local_batch = local_rows(global_batch, dp_index, dp)
     seed = cfg.seed if cfg.seed is not None else 0
-    # the device's default generator feeds the UNet's dropout: its own
-    # stream on each rank
-    torch.manual_seed(seed + rank)
+    # the device's default generator feeds the UNet's dropout: one stream
+    # per dp index, the same masks across an fsdp group
+    torch.manual_seed(seed + dp_index)
 
     output_dir = create_output_folders(cfg.output_dir, cfg)
     writer = _open_writer(cfg, output_dir) if is_main else None
@@ -594,17 +613,18 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
             "use_bucketing: shape-grouped batch ordering is single-host "
             "only; disabling bucket batching for this multi-host run")
         use_bucketing = False
-    # the loader's batch is the global one; each rank loads its rows
+    # the loader's batch is the global one; each rank loads its dp
+    # index's rows
     train_dataloader = DataLoader(train_dataset, batch_size=global_batch,
                                   shuffle=cfg.shuffle, seed=cfg.seed or 0,
-                                  pad_last=True, num_shards=world,
-                                  shard_index=rank,
+                                  pad_last=True, num_shards=dp,
+                                  shard_index=dp_index,
                                   bucket_batching=use_bucketing)
-    cached = handle_cache_latents(cfg, output_dir, train_dataloader, vae,
-                                  device, rank, world, global_batch)
+    cached = handle_cache_latents(
+        cfg, output_dir, train_dataloader, vae, device, dp_index, dp,
+        global_batch, write=fsdp_index == 0, barrier=barrier)
     if cached is not None:
         train_dataloader = cached
-    barrier()       # every rank's cache is written before the first step
 
     # graceful preemption: the handler only flips an event; the loop
     # finishes the step in flight, writes checkpoint-<step> and returns.
@@ -730,11 +750,14 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
                  "text_lora": host.get("text_lora"),
                  "text_sites": text_sites})
 
+    clip_scorer = []        # built at the first scored sample
+
     def sample(prompt: str, batch) -> None:
         """A validation clip through the ported pipeline with the EMA (when
         use_ema) or the live weights, both LoRAs through the branch layers
         (equal to their collapse, JAX engine.py:855-866), written as an mp4
-        beside the run by rank 0.  Every rank samples: a sharded model
+        beside the run by rank 0, which alone scores it when
+        `compute_clip_score` is set.  Every rank samples: a sharded model
         runs only on all of them."""
         use_ema = cfg.use_ema and state.ema is not None
         backup = train_state_io.to_host(state.trainable) if use_ema else None
@@ -769,6 +792,17 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
         out_file = f"{output_dir}/samples/{save_name}.mp4"
         export_to_video(frames[0], out_file, cfg.train_data.get("fps", 8))
         logger.info(f"Saved a new sample to {out_file}")
+        if vd.get("compute_clip_score"):
+            # JAX :893-908: the sample's CLIP score against its prompt
+            if not clip_scorer:
+                from ..eval.clip_score import CLIPScorer
+                clip_scorer.append(CLIPScorer(vd["clip_model_path"],
+                                              device=device))
+            cs = clip_scorer[0].score_frames(frames[0], prompt)
+            logger.info(f"clip_score={cs:.3f} at step {global_step} "
+                        f"({prompt[:60]!r})")
+            if writer is not None:
+                writer.add_scalar("clip_score", cs, global_step)
 
     def device_rngs():
         """Every rank's default generator, in rank order (a collective)."""

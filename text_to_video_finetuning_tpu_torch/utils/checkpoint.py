@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 from typing import Dict, Mapping, Optional, Tuple, Union
 
@@ -134,6 +135,9 @@ def normalize_state_dict(sd: Mapping[str, torch.Tensor],
     for key, t in sd.items():
         if key.endswith("position_ids"):
             continue
+        if "." not in key:              # a bare parameter (logit_scale)
+            out[key] = t
+            continue
         module_name, leaf = key.rsplit(".", 1)
         parts = module_name.split(".")
         if kind == "vae" and parts[-1] in _VAE_ATTN_RENAMES and (
@@ -146,6 +150,30 @@ def normalize_state_dict(sd: Mapping[str, torch.Tensor],
 
 # -- weight bridge from the JAX package ----------------------------------------
 
+# the JAX CLIPDualEncoder's leaves that are bare parameters, not modules
+_DUAL_BARE = {("vision_model", "class_embedding"):
+              "vision_model.embeddings.class_embedding",
+              ("logit_scale",): "logit_scale"}
+
+
+def _dual_encoder_name(path: Tuple[str, ...]) -> str:
+    """A JAX `CLIPDualEncoder` module path -> transformers' CLIPModel name:
+    the text tower as the text encoder's, the vision tower's layers under
+    `encoder` with the MLP under `mlp`, its patch and position embeddings
+    under `embeddings` (JAX eval/clip_vision.py:210-258 in reverse)."""
+    top, rest = path[0], path[1:]
+    if top == "text_model":
+        return flax_to_torch_key(rest, "text_encoder")
+    if top != "vision_model":
+        return ".".join(path)               # the two projections
+    name = flax_to_torch_key(rest, "vision")
+    if name.startswith("layers."):
+        name = "encoder." + re.sub(r"\.(fc1|fc2)$", r".mlp.\1", name)
+    elif name in ("patch_embedding", "position_embedding"):
+        name = "embeddings." + name
+    return "vision_model." + name
+
+
 def from_jax_params(flat_params: Mapping[Union[str, Tuple[str, ...]],
                                          np.ndarray],
                     kind: str) -> Dict[str, torch.Tensor]:
@@ -154,11 +182,18 @@ def from_jax_params(flat_params: Mapping[Union[str, Tuple[str, ...]],
     `flat_params` maps flax paths (tuples, or '/'-joined strings) ending in
     the leaf name (kernel / bias / scale / embedding) to numpy arrays, as
     `flax.traverse_util.flatten_dict(params)` gives them.  `kind` is 'unet',
-    'vae' or 'text_encoder'."""
+    'vae', 'text_encoder' or 'clip_dual' (the JAX eval `CLIPDualEncoder`:
+    its HWIO patch kernel becomes OIHW, the projections are transposed,
+    `class_embedding` and `logit_scale` go across bare)."""
     sd = {}
     for path, arr in flat_params.items():
         path = tuple(path.split("/")) if isinstance(path, str) else tuple(path)
-        torch_name = flax_to_torch_key(path[:-1], kind)
+        if kind == "clip_dual" and path in _DUAL_BARE:
+            sd[_DUAL_BARE[path]] = torch.from_numpy(
+                np.array(arr, dtype=np.float32, order="C"))
+            continue
+        torch_name = (_dual_encoder_name(path[:-1]) if kind == "clip_dual"
+                      else flax_to_torch_key(path[:-1], kind))
         leaf, tarr = flax_tensor_to_torch(path[-1], np.asarray(arr))
         sd[f"{torch_name}.{leaf}"] = torch.from_numpy(
             np.array(tarr, dtype=np.float32, order="C"))

@@ -1,22 +1,28 @@
-"""Diffusers -> original ModelScope/CompVis state-dict keys (the port's
-own copy of `convert_unet_state_dict` and `convert_text_enc_state_dict_v20`
-of text_to_video_finetuning_tpu/utils/convert_compvis.py:100,149, on torch
-tensors).
+"""Diffusers -> original ModelScope/CompVis state-dict keys, and the
+`t2v-convert-compvis-torch` command (port of
+text_to_video_finetuning_tpu/utils/convert_compvis.py, on torch tensors).
 
 Behavioral spec: reference
 utils/convert_diffusers_to_original_ms_text_to_video.py -- UNet key
 remapping (including the ModelScope `temopral_conv` typo key, reference
-:102, and the selective proj_in/proj_out unsqueeze, reference :201-214) and
-the SD-v2 text encoder remap with qkv fusion (reference :250-295).  The
-stable_lora webui export re-keys its LoRA state dicts through them
-(lora/formats.py::save_stable_lora).  The `t2v-convert-compvis` command is
-not ported yet (ROADMAP Queue 1 item 6).
+:102, and the selective proj_in/proj_out unsqueeze, reference :201-214),
+the SD-v2 text encoder remap with qkv fusion (reference :250-295) and the
+SD-v1 identity (:298-299).  The stable_lora webui export re-keys its LoRA
+state dicts through them (lora/formats.py::save_stable_lora).
+
+`main` is the reference's CLI (:370-465, JAX `_cli`): it reads a diffusers
+pipeline directory with the port's own safetensors codec (`.bin` through
+`torch.load(weights_only=True)`) and writes the UNet, and with
+`--clip_checkpoint_path` the text encoder, as a `.ckpt` (`torch.save` of
+a plain dict) or, with `--use_safetensors`, a `.safetensors`; `--half`
+stores fp16.  It does file work only, on the host, no device work.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -185,3 +191,77 @@ def convert_text_enc_state_dict_v20(text_enc_dict: Dict[str, torch.Tensor]):
                 lambda m: _PROTECTED[re.escape(m.group(0))], k_pre)
             new_state_dict[relabelled + suffix] = torch.cat(tensors, dim=0)
     return new_state_dict
+
+
+def convert_text_enc_state_dict(text_enc_dict: Dict[str, torch.Tensor]):
+    """SD v1 layout: identity (reference convert script :298-299)."""
+    return text_enc_dict
+
+
+def _load_sd(model_dir: str, names: Sequence[str]) -> Dict[str, torch.Tensor]:
+    from .checkpoint import read_safetensors
+    for name in names:
+        path = os.path.join(model_dir, name)
+        if not os.path.exists(path):
+            continue
+        if path.endswith(".safetensors"):
+            return read_safetensors(path)
+        return torch.load(path, map_location="cpu", weights_only=True)
+    raise FileNotFoundError(f"no weights under {model_dir}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """t2v-convert-compvis-torch: a diffusers pipeline dir -> the original
+    ModelScope/CompVis-keyed UNet (and CLIP) checkpoint.  The reference's
+    CLIP branch is dead code ("CLIP conversion doesn't work atm"); here, as
+    in JAX, --clip_checkpoint_path writes the converted text encoder."""
+    import argparse
+    from .checkpoint import write_safetensors
+
+    parser = argparse.ArgumentParser(prog="t2v-convert-compvis-torch")
+    parser.add_argument("--model_path", default=None, type=str,
+                        required=True, help="Path to the model to convert.")
+    parser.add_argument("--checkpoint_path", default=None, type=str,
+                        required=True, help="Path to the output model.")
+    parser.add_argument("--clip_checkpoint_path", default=None, type=str,
+                        help="Path to the output CLIP model.")
+    parser.add_argument("--half", action="store_true",
+                        help="Save weights in half precision.")
+    parser.add_argument("--use_safetensors", action="store_true",
+                        help="Save weights use safetensors, default is ckpt.")
+    args = parser.parse_args(argv)
+
+    unet_sd = _load_sd(os.path.join(args.model_path, "unet"),
+                       ("diffusion_pytorch_model.safetensors",
+                        "diffusion_pytorch_model.bin"))
+    text_sd = _load_sd(os.path.join(args.model_path, "text_encoder"),
+                       ("model.safetensors", "pytorch_model.bin"))
+
+    unet_sd = convert_unet_state_dict(unet_sd)
+
+    is_v20 = "text_model.encoder.layers.22.layer_norm2.bias" in text_sd
+    if is_v20:
+        text_sd = {"transformer." + k: v for k, v in text_sd.items()}
+        text_sd = convert_text_enc_state_dict_v20(text_sd)
+    else:
+        text_sd = convert_text_enc_state_dict(text_sd)
+
+    def _save(sd, path):
+        if args.half:
+            sd = {k: v.to(torch.float16) for k, v in sd.items()}
+        if args.use_safetensors:
+            write_safetensors(sd, path)
+        else:
+            torch.save(dict(sd), path)
+
+    print("Saving UNET")
+    _save(unet_sd, args.checkpoint_path)
+    if args.clip_checkpoint_path:
+        print("Saving CLIP")
+        _save(text_sd, args.clip_checkpoint_path)
+    print("Operation successfull")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
