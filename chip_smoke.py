@@ -8,14 +8,15 @@ configurations and trains configs/v2/train_config.yaml's full finetune and
 the three LoRA YAMLs (lora_training_config.yaml, stable_lora_config.yaml,
 low_vram_config_example.yaml) through the training engine (with
 checkpoints, resumes and reloads), lora_training_config.yaml on two
-ranks under torchrun (phase 20), and the eval and tooling entry points
-with CLIP-score validation in the engine (phase 21), all at the full width
-of the ms-1.7b model (random weights from a seed).
+ranks under torchrun (phase 20), the eval and tooling entry points
+with CLIP-score validation in the engine (phase 21), and inference and
+serving on the dp, tp, fsdp and sp mesh axes under torchrun (phase 22),
+all at the full width of the ms-1.7b model (random weights from a seed).
 
     python3 chip_smoke.py
 
-(`chip_smoke.py --rank-worker <spec>` is phase 20's rank, which torchrun
-starts.)  Phases, each fatal on failure (non-zero exit, no result line):
+(`chip_smoke.py --rank-worker <spec>` is phase 20's rank and
+`chip_smoke.py --mesh-worker <spec>` phase 22's, which torchrun starts.)  Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA device must be present; prints its name / power limit;
   2. build every kernel from csrc/ with nvcc (sm_90a), one process each,
      and print ptxas's registers, spills and wgmma serialization of each;
@@ -166,6 +167,23 @@ starts.)  Phases, each fatal on failure (non-zero exit, no result line):
      then two planted faults that must exit 1 naming their tensor: the
      VAE dir with CUT_TENSOR cut by a row, and the `.pt` with two pairs
      swapped (the reorder diagnosis).  Each report is printed.
+ 22. the inference mesh on phase 4's pipeline, request (a)'s prompt and
+     seed at 256x256, CFG 9 and MESH_STEPS (5) DPM-Solver steps in every
+     run: the yardstick in this process (16 frames, and 24 in windows of
+     8), then four `python -m torch.distributed.run` launches of two ranks
+     on cuda:0 over gloo (NCCL refuses two ranks on one card), this file
+     as `--mesh-worker`: (a) `t2v-inference-torch --mesh dp=2`, (b)
+     tp=2, (c) fsdp=2, (d) `t2v-serve-torch --mesh sp=2`, whose rank 0
+     answers a POST of each request and drains.  Each rank: step 1's
+     guided prediction (gathered) within MESH_BF16_RTOL of the
+     yardstick's; request (a)'s first UNet input replayed on the same mesh
+     on an fp32 pipeline with plain attention, within UNET_FP32_REL_L2_TOL
+     of one process's (phase 5's fp32 rule); the final latents' distance
+     printed, every frame finite,
+     both ranks' predictions and latents equal, only rank 0 writing files,
+     K1 at `mesh_expected`'s count by B*F, all on `sm90`; seconds, peak
+     memory and each collective's calls, seconds and bytes per request
+     printed (`parallel/comm.py`).
 The last two lines are the kernels record and the device record (JSON).
 K1, K2 and K3 run on two routes (ops/flash_attention.py::flash_route):
 `sm90` (csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dkv_sm90.cu,
@@ -2546,10 +2564,11 @@ def rank_worker(spec_path: str) -> int:
     return 0
 
 
-def torchrun(nproc, spec, timeout=900):
+def torchrun(nproc, spec, timeout=900, worker="--rank-worker"):
     """`python -m torch.distributed.run --standalone --nproc_per_node
-    nproc chip_smoke.py --rank-worker <spec>`, one run; returns each
-    rank's record, or fails with the launcher's output."""
+    nproc chip_smoke.py <worker> <spec>`, one run (`worker`: phase 20's
+    `--rank-worker` or phase 22's `--mesh-worker`); returns each rank's
+    record, or fails with the launcher's output."""
     here = os.path.dirname(os.path.abspath(__file__))
     spec_path = os.path.join(spec["dir"], f"{spec['label']}.spec.json")
     with open(spec_path, "w") as f:
@@ -2561,7 +2580,7 @@ def torchrun(nproc, spec, timeout=900):
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              f"--nproc_per_node={nproc}", os.path.abspath(__file__),
-             "--rank-worker", spec_path], capture_output=True, text=True,
+             worker, spec_path], capture_output=True, text=True,
             env=env, timeout=timeout)
     except subprocess.TimeoutExpired as e:
         fail(f"torchrun outlived {timeout} s: {(e.stderr or '')[-4000:]}")
@@ -3192,9 +3211,428 @@ def eval_phase(pipeline_dir, root):
     return launches
 
 
+# -- phase 22: the inference mesh --------------------------------------------
+
+MESH_STEPS = 5          # DPM-Solver steps of every phase-22 run (depth, not
+                        # width, cut so that the phase fits)
+# step 1's guided prediction of a bf16 mesh run against one process's,
+# relative L2.  A mesh changes only the order of the sums (tp's
+# row-parallel partials, the distributed GroupNorm's statistics, GEMMs of
+# other shapes), as flash attention changes the attention's: phase 5's
+# figure, bf16 flash vs plain on the UNet's output, 1.47e-2, bounds each
+# CFG branch; the guidance u + g (t - u) multiplies a branch's deviation
+# by (|g - 1| |u| + g |t|) / |u + g (t - u)|, 3.41 on request (a)'s first
+# step (g = 9), so 1.47e-2 x 3.41 = 5.0e-2.  (1.5e-2, phase 5's figure
+# alone, was the bound before the first run; that run read 3.41e-2 to
+# 4.33e-2, and one process's own bf16 flash vs plain on this quantity
+# 3.88e-2: PERF.md §6)
+MESH_BF16_RTOL = 5e-2
+MESH_PROMPT, MESH_SEED = REQUESTS[0][1], REQUESTS[0][2]
+# (frames, window): request (a)'s 16 frames, and 24 in windows of 8
+MESH_REQUESTS = [(16, None), (24, 8)]
+MESH_WARMUP = (16, 1)   # the server's warm-up: frames, steps
+# label: (entry point, --mesh), each one torchrun launch of two ranks
+MESH_RUNS = {"a_dp": ("inference", "dp=2"), "b_tp": ("inference", "tp=2"),
+             "c_fsdp": ("inference", "fsdp=2"), "d_sp": ("serve", "sp=2")}
+
+
+def unet_layout(unet):
+    """Heads of the first spatial self-attention at levels 0 and 1, and the
+    bytes of UNet parameters this rank holds (an fsdp shard's)."""
+    from text_to_video_finetuning_tpu_torch.models.attention import (
+        CrossAttention)
+    heads = {n: m.heads for n, m in unet.named_modules()
+             if isinstance(m, CrossAttention)}
+    held = 0
+    for p in unet.parameters():
+        local = p.to_local() if hasattr(p, "to_local") else p
+        held += local.numel() * local.element_size()
+    return {"level0_heads": heads[
+                "down_blocks.0.attentions.0.transformer_blocks.0.attn1"],
+            "level1_heads": heads[
+                "down_blocks.1.attentions.0.transformer_blocks.0.attn1"],
+            "unet_bytes": held}
+
+
+class SamplingRecord:
+    """While entered, keeps for each `generate` call: its seconds, peak
+    memory and collectives (`parallel/comm.py`), step 1's UNet predictions
+    and guided predictions (every window's, as the pipeline returns them:
+    gathered over the mesh), the final latents and the decoded video's
+    shape and finiteness; and the UNet's layout at the first forward."""
+
+    def __init__(self, replay=None):
+        """`replay`: (pipeline dir, request index): that request's first
+        UNet input is run again on an fp32 pipeline with plain attention,
+        on the same mesh, after the request (`fp32_replay`)."""
+        self.requests, self.layout, self.replay = [], None, replay
+        self.paused = False
+
+    def __enter__(self):
+        from text_to_video_finetuning_tpu_torch.parallel import comm
+        from text_to_video_finetuning_tpu_torch.pipelines import inference
+        from text_to_video_finetuning_tpu_torch.pipelines import (
+            text_to_video as t2v)
+        cls = t2v.TextToVideoSDPipeline
+        self._saved = (cls.guided_noise, cls.decode_latents,
+                       inference.generate, cls.unet_prediction)
+        guided, decode, generate, predict = self._saved
+        rec = self
+
+        def timed_generate(*args, **kwargs):
+            cur = {"step1": [], "unet1": [], "t0": None}
+            rec.requests.append(cur)
+            comm.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = generate(*args, **kwargs)
+            torch.cuda.synchronize()
+            cur.update(seconds=time.perf_counter() - t0,
+                       peak=torch.cuda.max_memory_allocated(),
+                       comm={k: dict(v) for k, v in comm.STATS.items()})
+            if rec.replay and rec.replay[1] == len(rec.requests) - 1:
+                rec.paused = True           # the replay records nothing
+                try:
+                    cur["fp32"] = fp32_replay(rec.replay[0], args[0],
+                                              cur["input"])
+                finally:
+                    rec.paused = False
+            return out
+
+        def step1(key, out, timestep):
+            cur = rec.requests[-1]
+            if cur["t0"] is None:
+                cur["t0"] = int(timestep)
+            if int(timestep) == cur["t0"]:        # step 1, every window
+                cur[key].append(out.float().cpu())
+
+        def unet_prediction(pipe, latents, timestep, *args, **kwargs):
+            out = predict(pipe, latents, timestep, *args, **kwargs)
+            if not rec.paused:
+                step1("unet1", out, timestep)
+            return out
+
+        def guided_noise(pipe, latents, timestep, embeds, *args, **kwargs):
+            if rec.paused:
+                return guided(pipe, latents, timestep, embeds, *args,
+                              **kwargs)
+            cur = rec.requests[-1]
+            if "input" not in cur:
+                cur["input"] = (latents.clone(), int(timestep),
+                                embeds.clone())
+            out = guided(pipe, latents, timestep, embeds, *args, **kwargs)
+            if rec.layout is None:
+                rec.layout = unet_layout(pipe.unet)
+            step1("step1", out, timestep)
+            return out
+
+        def decode_latents(pipe, latents, *args, **kwargs):
+            px = decode(pipe, latents, *args, **kwargs)
+            rec.requests[-1].update(
+                latents=latents.float().cpu(), shape=list(px.shape),
+                finite=bool(torch.isfinite(px).all()))
+            return px
+        cls.guided_noise, cls.decode_latents = guided_noise, decode_latents
+        cls.unet_prediction = unet_prediction
+        inference.generate = timed_generate
+        return self
+
+    def __exit__(self, *exc):
+        from text_to_video_finetuning_tpu_torch.pipelines import inference
+        from text_to_video_finetuning_tpu_torch.pipelines import (
+            text_to_video as t2v)
+        cls = t2v.TextToVideoSDPipeline
+        (cls.guided_noise, cls.decode_latents, inference.generate,
+         cls.unet_prediction) = self._saved
+
+    def tensors(self):
+        return [{"step1": torch.cat(r["step1"], dim=2),
+                 "unet1": torch.cat(r["unet1"], dim=2),
+                 "latents": r["latents"], "fp32": r.get("fp32")}
+                for r in self.requests]
+
+    def summary(self):
+        return [{k: r[k] for k in ("seconds", "peak", "comm", "shape",
+                                   "finite")} for r in self.requests]
+
+
+def fp32_replay(pipeline_dir, pipe, inputs):
+    """Phase 5's fp32 rule at full width: the guided prediction of a
+    request's first UNet input (latents, timestep, embeds) on the pipeline
+    loaded in fp32 with plain attention, on `pipe`'s mesh (its tp split and
+    fsdp shards, its sp and dp gathers) or on one device."""
+    from text_to_video_finetuning_tpu_torch.pipelines.inference import (
+        initialize_pipeline)
+    latents, timestep, embeds = inputs
+    pipe32 = initialize_pipeline(pipeline_dir, use_fused_attention=False,
+                                 half=False, device=pipe.device,
+                                 mesh=pipe.mesh)
+    with torch.inference_mode():
+        out = pipe32.guided_noise(latents.float(), timestep, embeds.float(),
+                                  GUIDANCE, True).cpu()
+    del pipe32
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_request(frames, window):
+    return dict(prompt=MESH_PROMPT, width=SIZE, height=SIZE,
+                num_frames=frames, window_size=window or frames,
+                num_steps=MESH_STEPS, guidance_scale=GUIDANCE,
+                seed=MESH_SEED, no_batch=True)
+
+
+def serve_on_mesh(spec, rank):
+    """`t2v-serve-torch --mesh` on this rank; rank 0 POSTs MESH_REQUESTS to
+    its own front end from a thread, then SIGTERMs itself (the drain).
+    Returns (rank 0's answers: (status, body, seconds) each, the files
+    it reported)."""
+    import signal
+    import threading
+
+    from text_to_video_finetuning_tpu_torch import cli
+    from text_to_video_finetuning_tpu_torch.serving import server
+
+    answers = []
+
+    def client(port):
+        for frames, window in MESH_REQUESTS:
+            t0 = time.perf_counter()
+            status, body = post_json(f"http://127.0.0.1:{port}",
+                                     mesh_request(frames, window))
+            answers.append((status, body, time.perf_counter() - t0))
+        os.kill(os.getpid(), signal.SIGTERM)
+    serve_forever = server.T2VServer.serve_forever
+
+    def serving(self):
+        threading.Thread(target=client, args=(self.port,),
+                         daemon=True).start()
+        serve_forever(self)
+    server.T2VServer.serve_forever = serving
+    frames, steps = MESH_WARMUP
+    cli.serve_main(["-m", spec["pipeline"], "--port", "0", "--device",
+                    spec["device"], "--backend", spec["backend"], "--mesh",
+                    spec["mesh"], "-o", spec["out"], "--max-batch", "1",
+                    "--warmup-frames", str(frames), "--warmup-steps",
+                    str(steps)])
+    return answers, [body.get("path") for status, body, _ in answers
+                     if status == 200]
+
+
+def mesh_worker(spec_path: str) -> int:
+    """A rank of one of phase 22's two-rank runs, started by torchrun:
+    `t2v-inference-torch --mesh` (request (a) at MESH_STEPS) or
+    `t2v-serve-torch --mesh`, each under a `SamplingRecord` with the K1
+    launches counted around it (zeroed just before, read just after).
+    Writes `<dir>/<label>.rank<r>.json` and the rank's tensors."""
+    import faulthandler
+    faulthandler.enable()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from text_to_video_finetuning_tpu_torch import cli
+    rank = int(os.environ["RANK"])
+    label = spec["label"]
+    answers = []
+    replay = (spec["pipeline"], 0 if spec["kind"] == "inference" else 1)
+    with SamplingRecord(replay) as rec:
+        zero_counts()                               # the path starts here
+        t0 = time.perf_counter()
+        if spec["kind"] == "inference":
+            frames, _ = MESH_REQUESTS[0]
+            paths = cli.inference_main([
+                "-m", spec["pipeline"], "-p", MESH_PROMPT, "-W", str(SIZE),
+                "-H", str(SIZE), "-T", str(frames), "-s", str(MESH_STEPS),
+                "-g", str(GUIDANCE), "-r", str(MESH_SEED), "-x",
+                "-o", spec["out"], "--device", spec["device"],
+                "--backend", spec["backend"], "--mesh", spec["mesh"]])
+        else:
+            answers, paths = serve_on_mesh(spec, rank)
+        seconds = time.perf_counter() - t0
+        launches, by_batch = read_counts(), read_batch_counts()
+    torch.save(rec.tensors(), os.path.join(spec["dir"],
+                                           f"{label}.rank{rank}.pt"))
+    with open(os.path.join(spec["dir"], f"{label}.rank{rank}.json"),
+              "w") as f:
+        json.dump({"rank": rank, "seconds": seconds, "paths": paths,
+                   "answers": answers, "requests": rec.summary(),
+                   "layout": rec.layout, "launches": launches,
+                   "by_batch": by_batch}, f)
+    return 0
+
+
+def mesh_expected(kind, mesh):
+    """{B*F: K1 launches} a rank makes: FLASH_PER_UNET per UNet forward at
+    level 0's 1,024 tokens, per step and window; its rows of the CFG pair
+    (dp) times its frames of the window (sp), where each divides."""
+    axis, n = mesh.split("=")
+    n = int(n)
+    runs = [(MESH_REQUESTS[0][0], None, MESH_STEPS)]
+    if kind == "serve":
+        runs = [(MESH_WARMUP[0], None, MESH_WARMUP[1])] + [
+            (f, w, MESH_STEPS) for f, w in MESH_REQUESTS]
+    out = {}
+    for frames, window, steps in runs:
+        window = window or frames
+        rows = 2 // n if axis == "dp" else 2
+        local = window // n if axis == "sp" else window
+        out[rows * local] = out.get(rows * local, 0) + \
+            FLASH_PER_UNET * steps * (frames // window)
+    return out
+
+
+def mesh_yardstick(pipeline_dir):
+    """One process on the card, as phase 4 runs: MESH_REQUESTS at
+    MESH_STEPS through `generate` on a fresh pipeline."""
+    from text_to_video_finetuning_tpu_torch.pipelines.inference import (
+        initialize_pipeline)
+    from text_to_video_finetuning_tpu_torch.pipelines import inference
+    pipe = initialize_pipeline(pipeline_dir, use_fused_attention=True,
+                               half=True, device="cuda")
+    with SamplingRecord((pipeline_dir, 0)) as rec:
+        zero_counts()
+        for frames, window in MESH_REQUESTS:
+            req = mesh_request(frames, window)
+            req.pop("no_batch")
+            inference.generate(pipe, **req)
+        launches, by_batch = read_counts(), read_batch_counts()
+    want = {}
+    for frames, window in MESH_REQUESTS:
+        window = window or frames
+        want[2 * window] = want.get(2 * window, 0) + \
+            FLASH_PER_UNET * MESH_STEPS * (frames // window)
+    for r, (frames, window) in zip(rec.summary(), MESH_REQUESTS):
+        print(f"[mesh yardstick] {SIZE}x{SIZE}x{frames}f window "
+              f"{window or frames}, {MESH_STEPS} steps: {r['seconds']:.3f} "
+              f"s, peak {r['peak'] / 2**30:.2f} GiB, video {r['shape']}, "
+              f"finite {r['finite']}")
+        if not r["finite"]:
+            fail("[mesh yardstick] a frame is not finite")
+    if by_batch["K1"] != want or launches["K1_wmma"]:
+        fail(f"[mesh yardstick] K1 by batch {by_batch['K1']} (wmma "
+             f"{launches['K1_wmma']}), expected {want} all on sm90")
+    del pipe
+    torch.cuda.empty_cache()
+    return rec.tensors(), launches
+
+
+def mesh_report(label, kind, mesh, ranks, runs, yard):
+    """Phase 22's checks of one run (see `mesh_phase`)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    want = mesh_expected(kind, mesh)
+    # the server's first request is its warm-up
+    skip = 1 if kind == "serve" else 0
+    n_requests = 1 if kind == "inference" else len(MESH_REQUESTS)
+    tensors = [torch.load(os.path.join(runs, f"{label}.rank{r['rank']}.pt"))
+               for r in ranks]
+    for r, held in zip(ranks, tensors):
+        reqs = r["requests"][skip:]
+        print(f"[{label}] --mesh {mesh} rank {r['rank']} ({smi}): layout "
+              f"{r['layout']}")
+        for i, q in enumerate(reqs):
+            frames, window = MESH_REQUESTS[i]
+            comm_line = ", ".join(
+                f"{k} {v['calls']} calls {v['seconds']:.4f} s "
+                f"{v['bytes']} B" for k, v in q["comm"].items())
+            step1 = rel_l2(held[skip + i]["step1"], yard[i]["step1"])
+            unet1 = rel_l2(held[skip + i]["unet1"], yard[i]["unet1"])
+            final = rel_l2(held[skip + i]["latents"], yard[i]["latents"])
+            print(f"[{label}] rank {r['rank']} {frames}f window "
+                  f"{window or frames}: {q['seconds']:.3f} s, peak "
+                  f"{q['peak'] / 2**30:.2f} GiB, {comm_line}; step 1's "
+                  f"guided prediction {step1:.3e} of the yardstick's "
+                  f"(bound {MESH_BF16_RTOL}; the UNet's output {unet1:.3e}),"
+                  f" final latents {final:.3e}, "
+                  f"video {q['shape']}, finite {q['finite']}")
+            if not step1 <= MESH_BF16_RTOL:
+                fail(f"[{label}] rank {r['rank']}: step 1's guided "
+                     f"prediction {step1} of the yardstick's")
+            if i == 0:
+                fp32 = rel_l2(held[skip]["fp32"], yard[0]["fp32"])
+                print(f"[{label}] rank {r['rank']} fp32, plain attention, "
+                      f"request (a)'s first input: the guided prediction "
+                      f"{fp32:.3e} of one process's (bound "
+                      f"{UNET_FP32_REL_L2_TOL})")
+                if not fp32 <= UNET_FP32_REL_L2_TOL:
+                    fail(f"[{label}] rank {r['rank']}: fp32 guided "
+                         f"prediction {fp32} of one process's")
+            if q["shape"] != [1, 3, frames, SIZE, SIZE] or not q["finite"]:
+                fail(f"[{label}] rank {r['rank']}: video {q['shape']}, "
+                     f"finite {q['finite']}")
+        if len(reqs) != n_requests:
+            fail(f"[{label}] rank {r['rank']}: {len(reqs)} requests")
+        got = {int(b): n for b, n in r["by_batch"]["K1"].items()}
+        launches = r["launches"]
+        if got != want or launches["K1_wmma"] or \
+                launches["K1_sm90"] != launches["K1"]:
+            fail(f"[{label}] rank {r['rank']}: K1 by batch {got} "
+                 f"({launches}), expected {want} all on sm90")
+    print(f"[{label}] K1 per rank by B*F {want}, all on sm90")
+    for a, b in zip(tensors[0], tensors[1]):
+        if not (torch.equal(a["step1"], b["step1"])
+                and torch.equal(a["latents"], b["latents"])):
+            fail(f"[{label}] the ranks' predictions or latents differ")
+    # only rank 0 writes: its files, and nothing else, in the run's dir
+    paths = ranks[0]["paths"]
+    written = sorted(os.listdir(f"{runs}/{label}_out"))
+    if ranks[1]["paths"] or len(paths) != n_requests or written != sorted(
+            os.path.basename(p) for p in paths):
+        fail(f"[{label}] files: rank 0 {paths}, rank 1 "
+             f"{ranks[1]['paths']}, in the dir {written}")
+    for status, body, seconds in ranks[0]["answers"]:
+        print(f"[{label}] HTTP {status} in {seconds:.3f} s: "
+              f"{ {k: body.get(k) for k in ('num_frames', 'height', 'width')} }")
+        if status != 200:
+            fail(f"[{label}] HTTP {status}: {body}")
+    if kind == "serve" and len(ranks[0]["answers"]) != len(MESH_REQUESTS):
+        fail(f"[{label}] {len(ranks[0]['answers'])} answers")
+
+
+def mesh_phase(pipeline_dir, root):
+    """Phase 22: the inference mesh at full ms-1.7b width on phase 4's
+    pipeline.  The yardstick, one process on the card (`mesh_yardstick`);
+    then MESH_RUNS, each one `python -m torch.distributed.run` launch of
+    two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card),
+    this file as `--mesh-worker`: (a) `t2v-inference-torch --mesh dp=2`,
+    (b) tp=2, (c) fsdp=2, (d) `t2v-serve-torch --mesh sp=2`, whose rank 0
+    answers two POSTs (16 frames, then 24 in windows of 8) and drains.
+    Each run (`mesh_report`): step 1's guided prediction within
+    MESH_BF16_RTOL of the yardstick's; request (a)'s first input replayed
+    on the same mesh in fp32 with plain attention, its guided prediction
+    within UNET_FP32_REL_L2_TOL of one process's (`fp32_replay`); every
+    frame finite, the ranks' predictions equal, only rank 0 writing, each
+    rank's K1 launches at `mesh_expected`'s count by batch, all on
+    `sm90`.  Returns the
+    launches of each run summed over its ranks."""
+    runs = f"{root}/mesh_runs"
+    os.makedirs(runs, exist_ok=True)
+    try:
+        yard, yard_launches = mesh_yardstick(pipeline_dir)
+        out = {"mesh_yardstick": yard_launches}
+        for label, (kind, mesh) in MESH_RUNS.items():
+            torch.cuda.empty_cache()
+            ranks = torchrun(2, {
+                "device": "cuda:0", "backend": "gloo", "dir": runs,
+                "label": label, "kind": kind, "mesh": mesh,
+                "pipeline": pipeline_dir, "out": f"{runs}/{label}_out"},
+                timeout=600, worker="--mesh-worker")
+            mesh_report(label, kind, mesh, ranks, runs, yard)
+            out[f"mesh_{label}"] = {k: sum(r["launches"][k] for r in ranks)
+                                    for k in ranks[0]["launches"]}
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank-worker"]:
         return rank_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2])
     t_start = time.perf_counter()
 
     def lap(phase):
@@ -3332,6 +3770,12 @@ def main() -> int:
     # 21. eval and tooling: CLIP-score validation in the engine,
     # t2v-eval-torch, t2v-convert-compvis-torch, t2v-verify-checkpoint-torch
     by_path["clip_score_lora"] = eval_phase(pipeline_dir, workdir.name)
+    torch.cuda.empty_cache()
+
+    lap("22")
+    # 22. the inference mesh: dp, tp, fsdp through t2v-inference-torch and
+    # sp through t2v-serve-torch, two ranks each, against one process
+    by_path.update(mesh_phase(pipeline_dir, workdir.name))
     workdir.cleanup()
 
     lap("records")

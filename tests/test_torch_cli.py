@@ -4,8 +4,8 @@
   port's, with the same option strings, type, nargs, choices and default,
   except the listed differences (`-d/--device` defaults to "cuda"; the
   serve parser has no `--no-trim-to-warm` and, like bake, a `--device`);
-* a non-empty `--mesh` raises NotImplementedError naming ROADMAP Queue 1
-  item 5b, before any model is loaded;
+* a `--mesh` that needs more ranks than one process has raises the JAX
+  `mesh_from_string`'s ValueError, before any model is loaded;
 * `-x` / `-S` select the `auto` attention backend, as in JAX;
 * `inference_main --device cpu` on the tiny pipeline writes one mp4 of the
   requested frames;
@@ -28,7 +28,8 @@ torch.set_num_threads(2)
 # (parser, dest): the port's deliberate differences
 DEFAULT_DIFFERS = {("inference", "device"): ("tpu", "cuda")}
 ONLY_JAX = {("serve", "no_trim_to_warm")}
-ONLY_PORT = {("serve", "device"), ("bake", "device")}
+ONLY_PORT = {("serve", "device"), ("bake", "device"),
+             ("inference", "backend"), ("serve", "backend")}
 
 
 class _Captured(Exception):
@@ -82,16 +83,21 @@ def test_parser_flags_match_jax(name, monkeypatch):
             assert a.default == b.default, dest
     for n, dest in ONLY_PORT:
         if n == name:
-            assert ours[dest].default == "cuda"
+            assert ours[dest].default == {"device": "cuda",
+                                          "backend": None}[dest]
 
 
 @pytest.mark.parametrize("main", ["inference", "serve"])
 def test_mesh_raises_naming_queue1_item5(main):
+    """One process is a world of one: `--mesh dp=2` raises the JAX
+    `mesh_from_string`'s ValueError before any load (the model path does
+    not exist) and leaves no process group behind."""
     argv = {"inference": ["-m", "/nonexistent", "-p", "x"],
             "serve": ["-m", "/nonexistent", "--no-warmup"]}[main]
     fn = cli.inference_main if main == "inference" else cli.serve_main
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
-        fn(argv + ["--mesh", "dp=2"])
+    with pytest.raises(ValueError, match="'dp=2' needs 2 devices, have 1"):
+        fn(argv + ["--mesh", "dp=2", "--device", "cpu"])
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("flags,fused", [([], False), (["-x"], True),

@@ -312,8 +312,8 @@ def test_nonfinite_micro_batch_is_skipped(tiny_pipeline_dir, tiny_video,
 
 
 @pytest.mark.parametrize("option,error,match", [
-    (dict(mesh_tp=2), NotImplementedError, "ROADMAP Queue 1 item 5b$"),
-    (dict(mesh_sp=2), NotImplementedError, "ROADMAP Queue 1 item 5b$"),
+    (dict(mesh_tp=2), NotImplementedError, "ROADMAP Queue 1 item 5c$"),
+    (dict(mesh_sp=2), NotImplementedError, "ROADMAP Queue 1 item 5c$"),
     # the JAX engine's early errors (engine.py:658-674): CLIP-score
     # validation with no CLIP model dir, or one without a config.json
     (dict(validation_data=dict(compute_clip_score=True)), ValueError,

@@ -311,7 +311,7 @@ def test_dp2_fsdp2_ranks_take_the_rows_of_jax_batch_sharding():
     rows = batch_sharding(mesh).devices_indices_map((global_batch, 3))
     got = []
     for rank in range(4):
-        dp_index, fsdp_index = mesh_coords(rank, shape)
+        dp_index, fsdp_index, _, _ = mesh_coords(rank, shape)
         start, n = local_rows(global_batch, dp_index, shape["dp"])
         want = rows[mesh.devices[dp_index, fsdp_index, 0, 0]][0]
         assert (start, start + n) == want.indices(global_batch)[:2]

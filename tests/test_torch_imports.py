@@ -90,6 +90,7 @@ NEW_MODULES = ["ops.quantized_adam", "utils.convert_compvis", "lora.formats",
                "lora.embeds", "lora.merge", "models.lama", "serving",
                "serving.server", "pipelines.inference", "utils.tokenizer",
                "cli", "parallel", "parallel.mesh", "parallel.sharding",
+               "parallel.sequence", "parallel.comm",
                "eval", "eval.clip_vision", "eval.clip_score",
                "utils.verify_checkpoint"]
 
@@ -187,7 +188,7 @@ def test_minimal_tokenizer_writer_matches_the_jax_package(tmp_path):
     "cli.train_main", "initialize_pipeline", "inference", "T2VServer",
     "load_lama", "inpaint_watermark", "cli.inference_main",
     "cli.serve_main", "cli.bake_lora_main", "load_clip_model", "CLIPScorer",
-    "evaluate_directory", "audit_model_dir"])
+    "evaluate_directory", "audit_model_dir", "cli.start_mesh"])
 def test_loaders_default_to_the_card(loader):
     from text_to_video_finetuning_tpu_torch import cli
     from text_to_video_finetuning_tpu_torch.eval import clip_score
@@ -214,6 +215,7 @@ def test_loaders_default_to_the_card(loader):
               "CLIPScorer": clip_score.CLIPScorer,
               "evaluate_directory": clip_score.evaluate_directory,
               "audit_model_dir": verify_checkpoint.audit_model_dir,
+              "cli.start_mesh": cli.start_mesh,
               }.get(loader) or \
             getattr(checkpoint, loader)
         default = inspect.signature(fn).parameters["device"].default

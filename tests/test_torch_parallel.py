@@ -2,10 +2,12 @@
 
 * `mesh_from_string` + `mesh_shape` against the JAX `mesh_from_string` on
   eight virtual devices, spec by spec: the axis sizes, every rejected
-  spec's ValueError, and "" -> None; a spec for fewer ranks than the world
-  raises where JAX takes the first devices (the one difference);
-* `tp` / `sp` above 1 refused naming ROADMAP Queue 1 item 5b, by
-  `make_mesh` and by `t2v-train-torch` before any load;
+  spec's ValueError, and "" -> None, and each rank's (dp, fsdp, tp, sp)
+  coordinates (`mesh_coords`) against its device's place in the JAX mesh;
+  a spec for fewer ranks than the world raises where JAX takes the first
+  devices (the one difference);
+* training's `tp` / `sp` above 1 refused naming ROADMAP Queue 1 item 5c
+  (`refuse_unported`), and by `t2v-train-torch` before any load;
 * `init_distributed`: nothing without torchrun's variables; NCCL on
   `cuda:{LOCAL_RANK}`, gloo on the CPU, a named backend as named; a rank
   without its card refused;
@@ -63,6 +65,7 @@ def _outcome(fn):
 def test_mesh_specs_match_jax(spec):
     devices = jax.devices()[:8]
     theirs = _outcome(lambda: jmesh.mesh_from_string(spec, devices=devices))
+    jax_mesh = theirs[1] if theirs[0] == "ok" else None
     if theirs[0] == "ok":
         theirs = ("ok", None if theirs[1] is None
                   else dict(theirs[1].shape))
@@ -77,15 +80,22 @@ def test_mesh_specs_match_jax(spec):
             f"needs {need} devices, have 8" in ours[1]
     else:
         assert ours == theirs
+    if jax_mesh is not None and ours[0] == "ok":
+        # rank i is device i: its place in the JAX mesh's device array
+        for rank, device in enumerate(devices[:jax_mesh.devices.size]):
+            place = tuple(int(i) for i in
+                          np.argwhere(jax_mesh.devices == device)[0])
+            assert pmesh.mesh_coords(rank, ours[1]) == place, (spec, rank)
 
 
 @pytest.mark.parametrize("config", [pmesh.MeshConfig(tp=2),
                                     pmesh.MeshConfig(dp=2, sp=4)],
                          ids=["tp", "sp"])
 def test_tp_and_sp_are_refused_naming_5b(config):
+    """Training's refusal; inference and serving take tp and sp."""
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 5b$"):
-        pmesh.make_mesh(config)
+                       match="ROADMAP Queue 1 item 5c$"):
+        pmesh.refuse_unported(config)
 
 
 def test_the_train_cli_refuses_tp_before_any_load(tmp_path):
@@ -93,7 +103,7 @@ def test_the_train_cli_refuses_tp_before_any_load(tmp_path):
     path.write_text(yaml.safe_dump(dict(
         pretrained_model_path=str(tmp_path / "none"),
         output_dir=str(tmp_path / "o"), mesh_tp=2)))
-    with pytest.raises(NotImplementedError, match="item 5b$"):
+    with pytest.raises(NotImplementedError, match="item 5c$"):
         cli.train_main(["--config", str(path), "--device", "cpu"])
     assert not os.path.exists(tmp_path / "o")
 

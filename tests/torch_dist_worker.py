@@ -1,16 +1,20 @@
 """Ranks of the port in their own processes, for the multi-process CPU tests
-(test_torch_parallel.py, test_torch_engine_dist.py).  No JAX here: the
-children import only torch and the port.
+(test_torch_parallel.py, test_torch_engine_dist.py,
+test_torch_mesh_inference.py).  No JAX here: the children import only
+torch and the port.
 
 `run_ranks(target, world, tmp, args)` starts `world` interpreters on this
 file, with torchrun's RANK / WORLD_SIZE / LOCAL_RANK set; each runs
 `TARGETS[target](rank, world, args)` and `torch.save`s what it returns to
-`tmp/<target>.rank<r>.pt`.  Whoever starts the gloo group (the engine, or
-the target itself) reaches the other ranks through a `file://` rendezvous
-in `tmp`, with a 60 s collective timeout: the child binds both to
-`torch.distributed.init_process_group`.  The parent
+`tmp/<target>.rank<r>.pt`.  Whoever starts the gloo group (the engine, the
+CLI, or the target itself) reaches the other ranks through a `file://`
+rendezvous in `tmp` (a fresh file for each group the child starts), with a 60 s
+collective timeout: the child binds both
+to `torch.distributed.init_process_group`.  The parent
 waits at most `timeout` seconds for all of them, kills every child left on
-a timeout, and fails with each child's stderr when one does not exit 0.
+a timeout, and fails with each child's stderr when one does not exit 0;
+`wait_ranks(start_ranks(...))` returns the exit codes and logs instead.
+Each child runs `threads` torch threads (OMP_NUM_THREADS).
 """
 
 import datetime
@@ -30,8 +34,8 @@ REPO = os.path.dirname(HERE)
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=60)
 
 
-def run_ranks(target, world, tmp, args, timeout=120):
-    """-> [rank 0's result, rank 1's, ...]"""
+def start_ranks(target, world, tmp, args, threads=2):
+    """Start the ranks; -> (tmp, target, [(process, log file)])."""
     tmp = str(tmp)
     os.makedirs(tmp, exist_ok=True)
     args_path = os.path.join(tmp, f"{target}.args.pkl")
@@ -39,7 +43,7 @@ def run_ranks(target, world, tmp, args, timeout=120):
         pickle.dump(args, f)
     rendezvous = os.path.join(tmp, f"{target}.rendezvous")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, HERE]),
-               OMP_NUM_THREADS="2")
+               OMP_NUM_THREADS=str(threads))
     procs = []
     for rank in range(world):
         log = open(os.path.join(tmp, f"{target}.rank{rank}.log"), "w+")
@@ -47,6 +51,13 @@ def run_ranks(target, world, tmp, args, timeout=120):
             [sys.executable, __file__, target, str(rank), str(world),
              rendezvous, args_path], stdout=log, stderr=subprocess.STDOUT,
             env=env, cwd=tmp), log))
+    return tmp, target, procs
+
+
+def wait_ranks(started, timeout=120):
+    """Wait at most `timeout` s, kill what is left; -> ([exit codes], the
+    ranks' logs)."""
+    _, _, procs = started
     deadline = time.monotonic() + timeout
     try:
         for proc, _ in procs:
@@ -64,10 +75,17 @@ def run_ranks(target, world, tmp, args, timeout=120):
         logs.append(f"--- rank {rank} (exit {proc.returncode}) ---\n"
                     + log.read()[-6000:])
         log.close()
-    if any(proc.returncode != 0 for proc, _ in procs):
+    return [proc.returncode for proc, _ in procs], "\n".join(logs)
+
+
+def run_ranks(target, world, tmp, args, timeout=120, threads=2):
+    """-> [rank 0's result, rank 1's, ...]"""
+    started = start_ranks(target, world, tmp, args, threads)
+    codes, logs = wait_ranks(started, timeout)
+    if any(code != 0 for code in codes):
         raise AssertionError(f"{target}: a rank failed or outlived "
-                             f"{timeout} s\n" + "\n".join(logs))
-    return [torch.load(os.path.join(tmp, f"{target}.rank{r}.pt"),
+                             f"{timeout} s\n" + logs)
+    return [torch.load(os.path.join(str(tmp), f"{target}.rank{r}.pt"),
                        weights_only=False) for r in range(world)]
 
 
@@ -259,17 +277,220 @@ def _grads(rank, world, args):
             "bytes": nbytes}
 
 
-TARGETS = {"engine": _engine, "grads": _grads}
+def _mesh_group(world, spec):
+    """The gloo group and the mesh of `spec` over the world."""
+    from text_to_video_finetuning_tpu_torch.parallel import (
+        init_distributed, make_mesh, mesh_from_string)
+    init_distributed("cpu")
+    return make_mesh(mesh_from_string(spec, world), "cpu")
+
+
+def _sample(rank, world, args):
+    """`generate` on the tiny pipeline on the mesh args["mesh"], for each
+    of args["cases"] (generate's kwargs, the JAX draws among them); first,
+    with args["cli"], `t2v-inference-torch` on that mesh (it starts and
+    leaves its own group).  Returns the videos, the CLI's paths, the
+    collectives' stats and the rank's mesh coordinates."""
+    from text_to_video_finetuning_tpu_torch import cli
+    from text_to_video_finetuning_tpu_torch.parallel import comm
+    from text_to_video_finetuning_tpu_torch.pipelines.inference import (
+        generate, initialize_pipeline)
+
+    out = {}
+    if args.get("cli"):
+        out["cli"] = cli.inference_main(args["cli"])
+    mesh = _mesh_group(world, args["mesh"])
+    try:
+        pipe = initialize_pipeline(args["pipeline"], half=False,
+                                   device="cpu", mesh=mesh)
+        comm.reset_stats()
+        out["videos"] = [generate(pipe, **case) for case in args["cases"]]
+        out["stats"] = {k: dict(v) for k, v in comm.STATS.items()}
+        out["coords"] = tuple(mesh.get_coordinate())
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def _unet_sp(rank, world, args):
+    """The UNet of args["config"] with args["state"] on this rank's frames
+    of args["sample"] under sp = world; the prediction all-gathered over
+    frames, and the collectives' stats."""
+    from text_to_video_finetuning_tpu_torch.models import unet3d
+    from text_to_video_finetuning_tpu_torch.parallel import comm, sequence
+
+    _mesh_group(world, f"sp={world}")
+    try:
+        unet = unet3d.UNet3DConditionModel(
+            unet3d.UNet3DConfig(**args["config"]))
+        unet.load_state_dict(args["state"])
+        unet.eval()
+        sp = sequence.sequence_group(torch.distributed.group.WORLD)
+        unet.set_sequence_parallel(sp)
+        n = args["sample"].shape[2] // world
+        comm.reset_stats()
+        with torch.no_grad():
+            pred = unet(args["sample"][:, :, rank * n:(rank + 1) * n],
+                        args["t"], args["context"])
+            pred = comm.all_gather(pred, sp.group, dim=2)
+        stats = {k: dict(v) for k, v in comm.STATS.items()}
+    finally:
+        torch.distributed.destroy_process_group()
+    return {"pred": pred, "stats": stats}
+
+
+def _sp_ops(rank, world, args):
+    """The sp collectives alone on args["cases"], (B, C, F, H, W) tensors
+    whole on every rank: the all-to-all round trip of this rank's frames,
+    and the distributed GroupNorm of this rank's positions."""
+    from text_to_video_finetuning_tpu_torch.parallel import sequence
+
+    _mesh_group(world, f"sp={world}")
+    sp = sequence.sequence_group(torch.distributed.group.WORLD)
+    out = []
+    try:
+        for x, groups, eps in args["cases"]:
+            b, c, f, h, w = x.shape
+            n = f // world
+            mine = x[:, :, rank * n:(rank + 1) * n].reshape(b, c, n, h * w)
+            positions = sequence.frames_to_positions(mine, sp)
+            back = sequence.positions_to_frames(positions, sp, h * w)
+            norm = torch.nn.GroupNorm(groups, c, eps=eps)
+            with torch.no_grad():
+                norm.weight.copy_(torch.linspace(0.5, 1.5, c))
+                norm.bias.copy_(torch.linspace(-0.2, 0.2, c))
+                y = sequence.group_norm(
+                    positions, norm, sp,
+                    sequence.valid_positions(sp, h * w))
+            out.append({"mine": mine, "positions": positions, "back": back,
+                        "norm": sequence.positions_to_frames(y, sp, h * w),
+                        "valid": sequence.valid_positions(sp, h * w)})
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def _tp(rank, world, args):
+    """The UNet of args["config"] (seeded weights), one process's forward,
+    then `split_tp` over the world and the forward again; what the split
+    kept, the GEGLU halves this rank holds, a row-parallel layer at a zero
+    input, and a LoRA branch refused."""
+    from text_to_video_finetuning_tpu_torch.models import attention, unet3d
+    from text_to_video_finetuning_tpu_torch.models.init import init_weights_
+    from text_to_video_finetuning_tpu_torch.parallel import sharding
+
+    _mesh_group(world, f"tp={world}")
+    group = torch.distributed.group.WORLD
+    try:
+        g = torch.Generator().manual_seed(0)
+        unet = init_weights_(unet3d.UNet3DConditionModel(
+            unet3d.UNet3DConfig(**args["config"])), g)
+        unet.requires_grad_(False).eval()
+        for name, p in unet.named_parameters():
+            if name.endswith("bias"):          # the init leaves them 0
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+        with torch.no_grad():
+            whole = unet(args["sample"], args["t"], args["context"])
+            ffs = [m for m in unet.modules()
+                   if isinstance(m, attention.FeedForward)]
+            geglu_before = ffs[0].net[0].proj.weight.clone()
+            counts = sharding.split_tp(unet, group)
+            split = unet(args["sample"], args["t"], args["context"])
+            row = ffs[0].net[2]
+            zero = row(torch.zeros(1, row.in_features))
+        heads = {name: m.heads for name, m in unet.named_modules()
+                 if isinstance(m, attention.CrossAttention)}
+        lora = attention.CrossAttention(16, heads=2, dim_head=8)
+        lora.to_q.set_lora(torch.zeros(1, 16), torch.zeros(16, 1))
+        try:
+            sharding.split_tp(lora, group)
+            refused = None
+        except ValueError as exc:
+            refused = str(exc)
+    finally:
+        torch.distributed.destroy_process_group()
+    return {"whole": whole, "split": split, "counts": counts,
+            "heads": heads, "geglu_before": geglu_before,
+            "geglu_after": ffs[0].net[0].proj.weight.clone(),
+            "zero": zero, "bias": row.bias.clone(), "refused": refused}
+
+
+def _serve(rank, world, args):
+    """`t2v-serve-torch` with args["argv"] on the mesh of its --mesh, its
+    pipeline loaded in fp32.  Rank 0 POSTs args["requests"] to its own HTTP
+    front end from a thread, then SIGTERMs itself (the drain); each batch's
+    frames are kept.  With args["fail_rank"] that rank's first non-warm-up
+    batch raises."""
+    import json
+    import threading
+    import urllib.request
+
+    from text_to_video_finetuning_tpu_torch import cli
+    from text_to_video_finetuning_tpu_torch.pipelines import inference
+    from text_to_video_finetuning_tpu_torch.serving import server
+
+    load = inference.initialize_pipeline
+    inference.initialize_pipeline = functools.partial(load, half=False)
+
+    batches, answers = [], []
+    run = server.run_requests
+
+    def recorded(pipe, requests, device, generate=None):
+        if (args.get("fail_rank") == rank
+                and requests[0].prompt != "warmup"):
+            raise RuntimeError(f"planted failure on rank {rank}")
+        frames = run(pipe, requests, device, generate)
+        batches.append([r.prompt for r in requests])
+        if requests[0].prompt != "warmup":
+            answers.append(frames)
+        return frames
+    server.run_requests = recorded
+
+    def client(port):
+        base = f"http://127.0.0.1:{port}"
+        for body in args["requests"]:
+            req = urllib.request.Request(
+                base + "/generate", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    answers_http.append((resp.status, json.loads(resp.read())))
+            except Exception as exc:  # noqa: BLE001 -- recorded
+                answers_http.append((None, repr(exc)))
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    answers_http = []
+    serve_forever = server.T2VServer.serve_forever
+
+    def serving(self):
+        threading.Thread(target=client, args=(self.port,),
+                         daemon=True).start()
+        serve_forever(self)
+    server.T2VServer.serve_forever = serving
+    out = cli.serve_main(args["argv"])
+    return {"out": out, "batches": batches, "answers": answers,
+            "http": answers_http}
+
+
+TARGETS = {"engine": _engine, "grads": _grads, "sample": _sample,
+           "unet_sp": _unet_sp, "sp_ops": _sp_ops, "tp": _tp,
+           "serve": _serve}
 
 
 def _child(target, rank, world, rendezvous, args_path):
-    torch.set_num_threads(2)
+    torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank))
-    torch.distributed.init_process_group = functools.partial(
-        torch.distributed.init_process_group,
-        init_method=f"file://{rendezvous}", rank=rank, world_size=world,
-        timeout=COLLECTIVE_TIMEOUT)
+    init, groups = torch.distributed.init_process_group, []
+
+    def init_process_group(*args, **kwargs):
+        # a fresh rendezvous file for each group a rank starts: every rank
+        # starts its groups in the same order
+        groups.append(None)
+        kwargs.update(init_method=f"file://{rendezvous}.{len(groups)}",
+                      rank=rank, world_size=world, timeout=COLLECTIVE_TIMEOUT)
+        return init(*args, **kwargs)
+    torch.distributed.init_process_group = init_process_group
     with open(args_path, "rb") as f:
         args = pickle.load(f)
     out = TARGETS[target](rank, world, args)

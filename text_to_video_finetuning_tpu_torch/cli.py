@@ -12,12 +12,17 @@ text_to_video_finetuning_tpu/cli.py):
 
 The flags are the JAX package's, with these differences: `-d/--device`
 (inference; bake; train and serve as `--device`) names a torch device and
-defaults to the card; `--mesh` is accepted and a non-empty value raises
-(multi-device inference is not ported); training runs one process per
-rank under torchrun, each rank on `cuda:{LOCAL_RANK}` of the base device
-`--device cuda` (`--backend` nccl or gloo; see training/engine.py);
+defaults to the card; training, and inference and serving with `--mesh`,
+run one process per rank under torchrun, each rank on
+`cuda:{LOCAL_RANK}` of the base device `--device cuda` (`--backend` nccl
+or gloo; `--device cuda:0 --backend gloo` puts every rank on one card);
+a `--mesh` that needs more ranks than the launch has raises the JAX
+ValueError before any load, one process being a world of one;
 `t2v-serve-torch` has no
 `--no-trim-to-warm` (the port's server keeps no warm-signature table).
+
+    torchrun --nproc_per_node 2 --no-python t2v-inference-torch \
+        -m <pipeline dir> -p "a prompt" --mesh sp=2
 Training's YAML keys are `training/engine.py::main`'s kwargs; reading the
 YAML needs `yaml`, otherwise call `engine.main(**config_dict)`.
 """
@@ -25,6 +30,7 @@ YAML needs `yaml`, otherwise call `engine.main(**config_dict)`.
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import platform
 import re
@@ -32,13 +38,52 @@ from pathlib import Path
 from typing import Optional, Sequence
 from uuid import uuid4
 
-MESH_NOT_PORTED = ("--mesh: multi-device inference is not ported to the "
-                   "PyTorch package yet (ROADMAP.md Queue 1 item 5b)")
+# how long a server's follower ranks wait in a collective for rank 0's
+# next batch: as long as the server may idle
+SERVE_TIMEOUT = datetime.timedelta(days=365)
 
 
-def _no_mesh(spec: str):
-    if (spec or "").strip():
-        raise NotImplementedError(MESH_NOT_PORTED)
+def start_mesh(spec: str, device: str = "cuda",
+               backend: Optional[str] = None,
+               timeout: Optional[datetime.timedelta] = None):
+    """`--mesh`: (mesh or None, rank, device).  With a spec, the process
+    group of a torchrun launch starts as training's does
+    (`init_distributed`, its collectives waiting `timeout`); a spec the
+    world cannot hold raises the JAX `mesh_from_string`'s ValueError,
+    before any model loads, with the group left again.  A world of one
+    runs without a mesh."""
+    if not (spec or "").strip():
+        return None, 0, device
+    import torch.distributed as dist
+
+    from .parallel import (init_distributed, make_mesh, mesh_from_string,
+                           mesh_shape)
+    rank, world, dev = init_distributed(device, backend, timeout)
+    try:
+        config = mesh_from_string(spec, world)
+        mesh_shape(config, world)
+        if world > 1:
+            return make_mesh(config, dev.type), rank, dev
+    except BaseException:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        raise
+    if dist.is_initialized():           # a torchrun launch of one rank
+        dist.destroy_process_group()
+    return None, 0, dev
+
+
+def leave_mesh(mesh):
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def _backend_flag(parser: argparse.ArgumentParser):
+    parser.add_argument("--backend", type=str, default=None,
+                        choices=("nccl", "gloo"),
+                        help="process-group backend under torchrun "
+                             "(default: nccl on the card, gloo on the CPU)")
 
 
 def train_parser() -> argparse.ArgumentParser:
@@ -52,10 +97,7 @@ def train_parser() -> argparse.ArgumentParser:
                              "under torchrun each rank takes "
                              "cuda:LOCAL_RANK, and cuda:N puts every rank "
                              "on card N)")
-    parser.add_argument("--backend", type=str, default=None,
-                        choices=("nccl", "gloo"),
-                        help="process-group backend under torchrun "
-                             "(default: nccl on the card, gloo on the CPU)")
+    _backend_flag(parser)
     return parser
 
 
@@ -109,16 +151,26 @@ def build_inference_parser() -> argparse.ArgumentParser:
     parser.add_argument("-l", "--loop", action="store_true")
     parser.add_argument("-r", "--seed", type=int, default=None)
     parser.add_argument("--mesh", type=str, default="",
-                        help="multi-device sampling mesh: not ported, a "
-                             "non-empty value raises")
+                        help="multi-device sampling mesh under torchrun, "
+                             "e.g. 'dp=2,sp=4' (CFG pair over dp, frames "
+                             "over sp, the UNet over tp/fsdp)")
+    _backend_flag(parser)
     return parser
 
 
 def inference_main(argv: Optional[Sequence[str]] = None) -> list:
     """`t2v-inference-torch`: one request, one mp4 per video under
-    --output-dir; returns the paths written."""
+    --output-dir; returns the paths written (on a mesh, rank 0 writes and
+    returns them, the other ranks return [])."""
     args = build_inference_parser().parse_args(argv)
-    _no_mesh(args.mesh)
+    mesh, rank, device = start_mesh(args.mesh, args.device, args.backend)
+    try:
+        return _inference(args, mesh, rank, device)
+    finally:
+        leave_mesh(mesh)
+
+
+def _inference(args, mesh, rank, device) -> list:
     from .data.video import export_to_video
     from .pipelines.inference import inference, load_init_video
     from .serving.server import postprocess
@@ -148,14 +200,16 @@ def inference_main(argv: Optional[Sequence[str]] = None) -> list:
         use_fused_attention=args.xformers or args.sdp,
         lora_path=args.lora_path, lora_rank=args.lora_rank,
         lora_scale=args.lora_scale, loop=args.loop, seed=args.seed,
-        device=args.device)
+        device=device, mesh=mesh)
+    if rank != 0:
+        return []
 
     os.makedirs(args.output_dir, exist_ok=True)
     paths = []
     for video in videos:                                # (C, F, H, W) [-1,1]
         if args.remove_watermark:
             print("Inpainting watermarks...")
-        frames = postprocess(video, args.remove_watermark, args.device)
+        frames = postprocess(video, args.remove_watermark, device)
         path = f"{out_name} {str(uuid4())[:8]}.mp4"
         export_to_video(frames, path, args.fps)
         paths.append(path)
@@ -329,24 +383,53 @@ def build_serve_parser() -> argparse.ArgumentParser:
     parser.add_argument("-lS", "--lora_scale", type=float, default=1.0)
     parser.add_argument("--no-fused-attention", action="store_true")
     parser.add_argument("--mesh", type=str, default="",
-                        help="multi-device sampling mesh: not ported, a "
-                             "non-empty value raises")
+                        help="multi-device sampling mesh under torchrun, "
+                             "e.g. 'sp=4' or 'dp=2,sp=4' (see "
+                             "t2v-inference-torch --mesh); rank 0 serves "
+                             "HTTP")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default: cuda)")
+    _backend_flag(parser)
     return parser
 
 
 def serve_main(argv: Optional[Sequence[str]] = None):
     """`t2v-serve-torch`: a resident pipeline behind the batching HTTP
     server (serving/server.py).  SIGTERM drains: accepted requests finish,
-    new ones get 503, then the process exits."""
+    new ones get 503, then the process exits.  On a mesh rank 0 serves and
+    the other ranks follow its batches (serving/server.py), ignoring
+    SIGTERM until rank 0's stop; a batch that fails on any rank raises on
+    every rank."""
     parser = build_serve_parser()
     args = parser.parse_args(argv)
     if args.max_queue < 0:
         # a negative bound would 503 every request
         parser.error(f"--max-queue must be >= 0, got {args.max_queue}")
-    _no_mesh(args.mesh)
+    mesh, rank, device = start_mesh(args.mesh, args.device, args.backend,
+                                    SERVE_TIMEOUT)
+    try:
+        if rank != 0:
+            return _follow(args, mesh, device)
+        return _serve(args, mesh, device)
+    finally:
+        leave_mesh(mesh)
 
+
+def _follow(args, mesh, device) -> int:
+    import signal
+
+    from .pipelines.inference import initialize_pipeline
+    from .serving.server import follow_batches
+    signal.signal(signal.SIGTERM, lambda *_: print(
+        "SIGTERM: this rank waits for rank 0's drain and stop"))
+    pipe = initialize_pipeline(
+        args.model, not args.no_fused_attention, args.lora_path,
+        args.lora_rank, lora_scale=args.lora_scale, device=device,
+        mesh=mesh)
+    return follow_batches(pipe, device)
+
+
+def _serve(args, mesh, device):
     import signal
     import threading
     import time
@@ -360,7 +443,7 @@ def serve_main(argv: Optional[Sequence[str]] = None):
         lora_path=args.lora_path, lora_rank=args.lora_rank,
         lora_scale=args.lora_scale,
         request_timeout_s=args.request_timeout_s,
-        max_queue=args.max_queue or None, device=args.device)
+        max_queue=args.max_queue or None, device=device, mesh=mesh)
     # installed before the warm-up, so a SIGTERM during it skips the
     # remaining sizes and never enters serve_forever
     drain_requested = threading.Event()
@@ -398,10 +481,13 @@ def serve_main(argv: Optional[Sequence[str]] = None):
         # the drain thread closes the listening socket; when that lands
         # before serve_forever enters its loop, the loop raises on the
         # closed socket: that is the drain's exit
-        if not drain_requested.is_set():
+        if not drain_requested.is_set() and server.failed is None:
             raise
     finally:
         server.shutdown()
+    if server.failed is not None:
+        raise RuntimeError("a batch failed on the mesh") from server.failed
+    server.stop_followers()
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.groupnorm import group_norm_silu
+from ..parallel import sequence
 from .lora_layers import LoraConv2d, LoraConv3d, LoraLinear
 from .remat import CONV_TAG, tagged
 
@@ -92,7 +93,15 @@ def _temporal_conv(in_dim: int, out_dim: int, dropout: bool):
 class TemporalConvLayer(nn.Module):
     """ModelScope temporal conv: 4x [GroupNorm, SiLU, (Dropout), Conv3D]
     with a residual; conv4 is zero-initialised (identity at init).
-    Input/output (B*F, C, H, W); `num_frames` unfolds the batch axis."""
+    Input/output (B*F, C, H, W); `num_frames` unfolds the batch axis.
+
+    With a `sequence_parallel` group (`UNet3DConditionModel.
+    set_sequence_parallel`) the input holds this rank's num_frames / sp
+    frames: the layer runs on every frame at this rank's positions, between
+    the two all-to-alls, with distributed GroupNorms (parallel/
+    sequence.py)."""
+
+    sequence_parallel: Optional[sequence.SequenceGroup] = None
 
     def __init__(self, in_dim: int, out_dim: Optional[int] = None):
         super().__init__()
@@ -106,6 +115,8 @@ class TemporalConvLayer(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor,
                 num_frames: int = 1) -> torch.Tensor:
+        if self.sequence_parallel is not None:
+            return self._forward_sp(hidden_states, num_frames)
         bf, channels, height, width = hidden_states.shape
         h = hidden_states.reshape(bf // num_frames, num_frames, channels,
                                   height, width).permute(0, 2, 1, 3, 4)
@@ -118,6 +129,26 @@ class TemporalConvLayer(nn.Module):
                 h = conv3d(h)
         h = h + identity
         return h.permute(0, 2, 1, 3, 4).reshape(bf, channels, height, width)
+
+    def _forward_sp(self, hidden_states: torch.Tensor,
+                    num_frames: int) -> torch.Tensor:
+        sp = self.sequence_parallel
+        bf, channels, height, width = hidden_states.shape
+        local = num_frames // sp.size
+        h = hidden_states.reshape(bf // local, local, channels,
+                                  height * width).permute(0, 2, 1, 3)
+        h = sequence.frames_to_positions(h, sp)         # (B, C, F, Pc)
+        valid = sequence.valid_positions(sp, height * width)
+        identity = h
+        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
+            norm, *act, conv3d = conv
+            h = sequence.group_norm(h, norm, sp, valid)
+            for layer in act:
+                h = layer(h)
+            with tagged(CONV_TAG):
+                h = conv3d(h[..., None])[..., 0]
+        h = sequence.positions_to_frames(h + identity, sp, height * width)
+        return h.permute(0, 2, 1, 3).reshape(bf, channels, height, width)
 
 
 class Downsample2D(nn.Module):

@@ -12,23 +12,27 @@ Internally activations are NCHW with frames folded into the batch.
 State-dict keys are the diffusers names.  `fused_groupnorm` runs every
 ResnetBlock2D's GroupNorm -> SiLU through K4/K5 (the state dict does not
 change); `set_gradient_checkpointing` takes a remat policy with an optional
-`+skiplow` suffix (models/remat.py).
+`+skiplow` suffix (models/remat.py).  `set_sequence_parallel` splits the
+frame axis over an sp process group (parallel/sequence.py): the input then
+holds a rank's frames.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import AttentionBackend
+from ..parallel.sequence import SequenceGroup
 from .attention import CrossAttention
 from .embeddings import TimestepEmbedding, get_timestep_embedding
 from .lora_layers import LoraConv2d
 from .remat import parse_remat_policy
+from .resnet import TemporalConvLayer
 from .transformers import TransformerTemporalModel
 from .unet3d_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D,
                             DownBlock3D, UNetMidBlock3DCrossAttn, UpBlock3D)
@@ -82,6 +86,8 @@ def micro_unet_config(**overrides) -> UNet3DConfig:
 
 
 class UNet3DConditionModel(nn.Module):
+    sequence_parallel: Optional[SequenceGroup] = None
+
     def __init__(self, config: UNet3DConfig = UNET3D_MS_1_7B_CONFIG,
                  fused_groupnorm: bool = False):
         super().__init__()
@@ -159,6 +165,20 @@ class UNet3DConditionModel(nn.Module):
             if isinstance(module, CrossAttention):
                 module.attention_backend = backend
 
+    def set_sequence_parallel(self, group: Optional[SequenceGroup]):
+        """Split the frame axis over `group` (a `parallel.sequence.
+        SequenceGroup`), or, with None, run on whole clips as before.  With
+        a group, `forward` takes this rank's contiguous share of the frames
+        and returns their prediction: the three modules that mix frames
+        (every `TemporalConvLayer` and `TransformerTemporalModel`, which
+        `transformer_in` is) exchange positions for frames around their
+        math."""
+        self.sequence_parallel = group
+        for module in self.modules():
+            if isinstance(module, (TemporalConvLayer,
+                                   TransformerTemporalModel)):
+                module.sequence_parallel = group
+
     def set_gradient_checkpointing(self, enable: bool = True,
                                    remat_policy: str = "nothing"):
         """Checkpoint every resnet, temp_conv, attn and temp_attn unit of the
@@ -184,7 +204,12 @@ class UNet3DConditionModel(nn.Module):
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         device = sample.device
-        batch, _, num_frames, height, width = sample.shape
+        # under sp, `sample` holds this rank's `local` frames of the clip's
+        # `num_frames`: the temporal modules and their `num_frames > 1`
+        # tests see the clip, the per-frame repeats this rank's frames
+        batch, _, local, height, width = sample.shape
+        sp = self.sequence_parallel
+        num_frames = local * (sp.size if sp is not None else 1)
 
         up_factor = 2 ** self.num_upsamplers
         forward_upsample_size = (height % up_factor != 0
@@ -196,13 +221,13 @@ class UNet3DConditionModel(nn.Module):
             timesteps = timesteps.expand(batch)
         t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0])
         emb = self.time_embedding(t_emb.to(dtype))
-        emb = emb.repeat_interleave(num_frames, dim=0)
+        emb = emb.repeat_interleave(local, dim=0)
         context = encoder_hidden_states.to(dtype).repeat_interleave(
-            num_frames, dim=0)
+            local, dim=0)
 
         # 2. (B, C, F, H, W) -> (B*F, C, H, W)
         x = sample.to(dtype).permute(0, 2, 1, 3, 4).reshape(
-            batch * num_frames, cfg.in_channels, height, width)
+            batch * local, cfg.in_channels, height, width)
         x = self.conv_in(x)
         if num_frames > 1:
             x = self.transformer_in(x, num_frames)
@@ -234,5 +259,5 @@ class UNet3DConditionModel(nn.Module):
 
         # 6. post-process, (B*F, C, H, W) -> (B, C, F, H, W)
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        return x.reshape(batch, num_frames, cfg.out_channels,
+        return x.reshape(batch, local, cfg.out_channels,
                          *x.shape[-2:]).permute(0, 2, 1, 3, 4)

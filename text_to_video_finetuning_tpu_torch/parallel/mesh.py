@@ -6,10 +6,15 @@ The reference distributes by data parallelism only, Accelerate DDP over
 NCCL (reference train.py:518-523).  The port runs one process per rank
 under `torchrun` (`python -m torch.distributed.run`); its mesh is a
 `torch.distributed.device_mesh.DeviceMesh` over the whole world with the
-dims ("dp", "fsdp"), rank = dp index x fsdp + fsdp index (`mesh_coords`):
-the batch rows split over "dp" and replicated over "fsdp", the frozen
-models sharded over "fsdp" (parallel/sharding.py).  "tp" and "sp" are not
-ported (ROADMAP Queue 1 item 5b) and raise before anything loads.
+JAX mesh's dims ("dp", "fsdp", "tp", "sp") in its row-major order, rank =
+((dp index x fsdp + fsdp index) x tp + tp index) x sp + sp index
+(`mesh_coords`); size-1 dims stay in the mesh.  Training splits the batch
+rows over "dp", replicates them over "fsdp" and shards the frozen models
+over "fsdp" (parallel/sharding.py); it refuses "tp" and "sp" before
+anything loads (`refuse_unported`, ROADMAP Queue 1 item 5c).  Inference
+and serving take every axis: "dp" splits the CFG pair, "sp" the frames
+(parallel/sequence.py), "tp" the attention heads and feed-forward columns
+and "fsdp" the UNet weights (parallel/sharding.py).
 
 `mesh_from_string` parses the JAX package's CLI syntax with the same
 accepted specs and errors; `make_mesh` checks the sizes against the world
@@ -21,6 +26,7 @@ the first N devices, since each rank is a process that torchrun started.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
 import os
 from typing import Dict, Optional, Tuple, Union
@@ -29,7 +35,7 @@ import torch
 
 logger = logging.getLogger("t2v_torch")
 
-NOT_PORTED = "ROADMAP Queue 1 item 5b"
+NOT_PORTED = "ROADMAP Queue 1 item 5c"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,13 +47,14 @@ class MeshConfig:
 
 
 def refuse_unported(config: MeshConfig):
-    """tp and sp (tensor and frame-axis parallelism) are not ported."""
+    """Training's tp and sp (tensor and frame-axis parallelism of the
+    trained step) are not ported; inference and serving take them."""
     axes = {a: getattr(config, a) for a in ("tp", "sp")
             if getattr(config, a) > 1}
     if axes:
         raise NotImplementedError(
-            f"the {'/'.join(axes)} mesh axes ({axes}) are not ported yet: "
-            f"{NOT_PORTED}")
+            f"training on the {'/'.join(axes)} mesh axes ({axes}) is not "
+            f"ported yet: {NOT_PORTED}")
 
 
 def mesh_shape(config: MeshConfig, n: int) -> Dict[str, int]:
@@ -70,26 +77,47 @@ def mesh_shape(config: MeshConfig, n: int) -> Dict[str, int]:
             "sp": config.sp}
 
 
-def mesh_coords(rank: int, shape: Dict[str, int]) -> Tuple[int, int]:
-    """(dp index, fsdp index) of `rank` in a mesh of `shape` (`mesh_shape`),
-    in `make_mesh`'s row-major order: the ranks of one fsdp group are
-    consecutive."""
-    return divmod(rank, shape["fsdp"])
+AXES = ("dp", "fsdp", "tp", "sp")
+
+
+def mesh_coords(rank: int, shape: Dict[str, int]
+                ) -> Tuple[int, int, int, int]:
+    """(dp, fsdp, tp, sp) indices of `rank` in a mesh of `shape`
+    (`mesh_shape`), in `make_mesh`'s row-major order (the JAX
+    `make_mesh`'s reshape, mesh.py:54): the ranks of one sp group are
+    consecutive, then those of one tp group, then one fsdp group."""
+    coords = []
+    for axis in reversed(AXES):
+        rank, index = divmod(rank, shape[axis])
+        coords.append(index)
+    return tuple(reversed(coords))
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of `axis` in a DeviceMesh from `make_mesh` (1 without a
+    mesh)."""
+    return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's index along `axis` (0 without a mesh)."""
+    return 0 if mesh is None else mesh.get_local_rank(axis)
 
 
 def make_mesh(config: MeshConfig = MeshConfig(),
               device_type: Optional[str] = None):
     """A DeviceMesh over the process group's world with dims ("dp",
-    "fsdp"); the process group must be up (`init_distributed`)."""
+    "fsdp", "tp", "sp"); the process group must be up
+    (`init_distributed`).  Training refuses tp and sp itself
+    (`refuse_unported`)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    refuse_unported(config)
     shape = mesh_shape(config, dist.get_world_size())
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (shape["dp"], shape["fsdp"]),
-                            mesh_dim_names=("dp", "fsdp"))
+    return init_device_mesh(device_type, tuple(shape[a] for a in AXES),
+                            mesh_dim_names=AXES)
 
 
 def mesh_from_string(spec: str, world: Optional[int] = None
@@ -136,7 +164,8 @@ def _launched() -> bool:
 
 
 def init_distributed(device: Optional[Union[str, torch.device]] = "cuda",
-                     backend: Optional[str] = None
+                     backend: Optional[str] = None,
+                     timeout: Optional[datetime.timedelta] = None
                      ) -> Tuple[int, int, torch.device]:
     """Start the process group of a torchrun launch; returns (rank, world,
     device).  The caller leaves the group (`destroy_process_group`).
@@ -148,7 +177,10 @@ def init_distributed(device: Optional[Union[str, torch.device]] = "cuda",
       takes `cuda:{LOCAL_RANK}`, which must exist; "cuda:N" and "cpu" are
       taken as they are (two ranks may share one card over gloo).
     * The backend: NCCL on a CUDA device, gloo on the CPU, unless the
-      caller names one.  The choice is logged."""
+      caller names one.  The choice is logged.
+    * `timeout`: how long a collective may wait (torch's default when
+      None); a server's followers wait for rank 0's next batch as long as
+      the server idles."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -173,6 +205,8 @@ def init_distributed(device: Optional[Union[str, torch.device]] = "cuda",
         torch.cuda.set_device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     kwargs = {"device_id": device} if backend == "nccl" else {}
+    if timeout is not None:
+        kwargs["timeout"] = timeout
     dist.init_process_group(backend, **kwargs)
     rank, world = dist.get_rank(), dist.get_world_size()
     logger.info(f"rank {rank} of {world}: backend {backend}, device {device}")

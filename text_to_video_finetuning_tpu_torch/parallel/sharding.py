@@ -17,18 +17,22 @@ the VAE replicated, the batch rows split over "dp" and replicated over
 * `local_rows`: a dp index's slice of the global batch, which every rank
   of that dp index's fsdp group holds.
 * `frozen_bytes`: what a rank holds of the frozen models.
-
-The JAX tp rules (`_TP_COL` / `_TP_ROW`) wait for ROADMAP Queue 1 item 5b.
+* `split_tp`: the JAX tp rules (`_TP_COL`, `_TP_COL_PARENT`, `_TP_ROW`,
+  sharding.py:28-30) as an explicit Megatron split of the UNet's attention
+  and feed-forward over the mesh's "tp" group, for inference (the JAX
+  pipeline shards `unet_params` only, pipelines/text_to_video.py:88-97).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..training.optim import leaves
+from .comm import all_reduce
 
 # fp32 elements in one all-reduce bucket (64 MiB)
 BUCKET_ELEMENTS = 16 * 2**20
@@ -138,3 +142,113 @@ def all_reduce_grads(trainable, group=None,
         if last and extra is not None:
             mean_extra = flat[offset:offset + n_extra].clone()
     return mean_extra, nbytes
+
+
+# -- tensor parallelism (inference) --------------------------------------------
+
+class RowParallelLinear(nn.Linear):
+    """A rank's input columns of a Linear (JAX `_TP_ROW`: `to_out.0`,
+    `ff.net.2`): its partial product, summed over the tp group in fp32,
+    then the bias, added once."""
+
+    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                 group):
+        super().__init__(weight.shape[1], weight.shape[0],
+                         bias=bias is not None, device="meta")
+        self.weight = nn.Parameter(weight, requires_grad=False)
+        if bias is not None:
+            self.bias = nn.Parameter(bias, requires_grad=False)
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = all_reduce(F.linear(x, self.weight).float(), self.group)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
+def _linear(weight: torch.Tensor, bias: Optional[torch.Tensor]
+            ) -> nn.Linear:
+    layer = nn.Linear(weight.shape[1], weight.shape[0],
+                      bias=bias is not None, device="meta")
+    layer.weight = nn.Parameter(weight, requires_grad=False)
+    if bias is not None:
+        layer.bias = nn.Parameter(bias, requires_grad=False)
+    return layer
+
+
+def _base(layer: nn.Linear, name: str):
+    """(weight, bias) of a Linear about to be split; a LoRA branch still
+    attached would be lost, so it raises (inference folds LoRA into the
+    weights before the split)."""
+    if getattr(layer, "lora_down", None) is not None:
+        raise ValueError(f"{name} carries a LoRA branch: fold it into the "
+                         "weights (collapse_lora_) before the tp split")
+    return layer.weight.detach(), (None if layer.bias is None
+                                   else layer.bias.detach())
+
+
+def _slice(t: Optional[torch.Tensor], dim: int, rank: int, n: int):
+    if t is None:
+        return None
+    k = t.shape[dim] // n
+    return t.narrow(dim, rank * k, k).clone()
+
+
+def split_tp(unet: nn.Module, group) -> Dict[str, int]:
+    """Split `unet`'s attention and feed-forward over the tp process
+    `group`, in place (Megatron):
+
+    * column-parallel, the output dim: `to_q`, `to_k`, `to_v`, a rank
+      keeping heads / tp whole heads (its `CrossAttention.heads` set to
+      match), and the GEGLU's `ff.net.0.proj`, a rank keeping the r-th
+      slice of each half, [value_r; gate_r], so `GEGLU.forward`'s chunk
+      pairs a rank's values with its own gates;
+    * row-parallel, the input dim: `to_out.0` and `ff.net.2`
+      (`RowParallelLinear`: partial sums all-reduced, the bias once).
+
+    Whole heads only: where JAX shards any kernel whose last dim divides
+    by tp (and XLA moves the data as it needs), an attention whose heads do
+    not divide by tp stays whole on every rank of the group (ms-1.7b level
+    0's 5 heads under tp=2), and so does a feed-forward whose inner width
+    does not.  The result is the same; the placement differs.  Returns
+    {"attention_split", "attention_whole", "ff_split", "ff_whole"}."""
+    import torch.distributed as dist
+    from ..models.attention import CrossAttention, FeedForward
+
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    counts = dict.fromkeys(("attention_split", "attention_whole",
+                            "ff_split", "ff_whole"), 0)
+    for name, module in list(unet.named_modules()):
+        if isinstance(module, CrossAttention):
+            if module.heads % n:
+                counts["attention_whole"] += 1
+                continue
+            for proj in ("to_q", "to_k", "to_v"):
+                w, b = _base(getattr(module, proj), f"{name}.{proj}")
+                setattr(module, proj, _linear(_slice(w, 0, rank, n),
+                                              _slice(b, 0, rank, n)))
+            w, b = _base(module.to_out[0], f"{name}.to_out.0")
+            module.to_out[0] = RowParallelLinear(_slice(w, 1, rank, n),
+                                                 b, group)
+            module.heads //= n
+            counts["attention_split"] += 1
+        elif isinstance(module, FeedForward):
+            inner = module.net[2].in_features
+            if inner % n:
+                counts["ff_whole"] += 1
+                continue
+            geglu = module.net[0]
+            w, b = _base(geglu.proj, f"{name}.net.0.proj")
+            halves = [(_slice(wh, 0, rank, n), _slice(bh, 0, rank, n))
+                      for wh, bh in zip(w.split(inner),
+                                        (None, None) if b is None
+                                        else b.split(inner))]
+            geglu.proj = _linear(
+                torch.cat([h[0] for h in halves]),
+                None if b is None else torch.cat([h[1] for h in halves]))
+            w, b = _base(module.net[2], f"{name}.net.2")
+            module.net[2] = RowParallelLinear(_slice(w, 1, rank, n), b,
+                                              group)
+            counts["ff_split"] += 1
+    return counts

@@ -70,8 +70,8 @@ def _embed_files(lora_path: str) -> List[str]:
 def initialize_pipeline(model: str, use_fused_attention: bool = True,
                         lora_path: str = "", lora_rank: int = 64,
                         half: bool = True, lora_scale: float = 1.0,
-                        device: Union[str, torch.device] = "cuda"
-                        ) -> TextToVideoSDPipeline:
+                        device: Union[str, torch.device] = "cuda",
+                        mesh=None) -> TextToVideoSDPipeline:
     """Load the pipeline directory `model` onto `device`.  `half` runs all
     three models in bf16; `use_fused_attention` selects the `auto` attention
     backend (flash kernel for long sequences), else the plain one.
@@ -83,7 +83,13 @@ def initialize_pipeline(model: str, use_fused_attention: bool = True,
     loaded in fp32 on `device`, the LoRA folded in place there, one site's
     delta at a time, and the models cast to bf16 afterwards (as the JAX
     package folds into fp32 parameters cast at use), so the peak is the
-    fp32 models.  `lora_rank` is unused: a file's tensors carry its rank."""
+    fp32 models.  `lora_rank` is unused: a file's tensors carry its rank.
+
+    `mesh` (a DeviceMesh from `parallel.make_mesh`, this process one of
+    its ranks) turns on multi-device sampling (JAX pipelines/
+    inference.py:32): the LoRA folded first, then the UNet split over
+    "tp" and sharded over "fsdp" (`TextToVideoSDPipeline.__post_init__`).
+    """
     device = torch.device(device)
     dtype = torch.bfloat16 if half else torch.float32
     load_dtype = torch.float32 if lora_path else dtype
@@ -115,7 +121,7 @@ def initialize_pipeline(model: str, use_fused_attention: bool = True,
                                else AttentionBackend.PLAIN)
     return TextToVideoSDPipeline(
         unet=unet, vae=vae, text_encoder=text_encoder, tokenizer=tokenizer,
-        scheduler_config=scheduler_config, device=device)
+        scheduler_config=scheduler_config, device=device, mesh=mesh)
 
 
 def load_init_video(path: str, height: int, width: int,
@@ -212,12 +218,14 @@ def inference(model: str, prompt, negative_prompt=None, width: int = 256,
               lora_path: str = "", lora_rank: int = 64,
               lora_scale: float = 1.0, loop: bool = False,
               seed: Optional[int] = None,
-              device: Union[str, torch.device] = "cuda") -> torch.Tensor:
-    """Load, then answer one request (reference inference.py:270-333).
-    Returns (B, 3, F, H, W) float32 on `device`."""
+              device: Union[str, torch.device] = "cuda",
+              mesh=None) -> torch.Tensor:
+    """Load, then answer one request (reference inference.py:270-333),
+    on `mesh` when given (JAX :222).  Returns (B, 3, F, H, W) float32 on
+    `device`, on every rank of a mesh."""
     pipe = initialize_pipeline(model, use_fused_attention, lora_path,
                                lora_rank, lora_scale=lora_scale,
-                               device=device)
+                               device=device, mesh=mesh)
     return generate(pipe, prompt, negative_prompt=negative_prompt,
                     width=width, height=height, num_frames=num_frames,
                     window_size=window_size, vae_batch_size=vae_batch_size,

@@ -31,6 +31,15 @@ Where the JAX server differs, and why:
   worker thread; HTTP handler threads only parse, wait, write the mp4 and
   answer.
 
+On a mesh (`mesh`, one process per rank under torchrun) rank 0 runs the
+HTTP front end and the worker; before each batch, warm-ups included, it
+broadcasts the batch's requests (`broadcast_batch`), and every other
+rank runs the same batch body in its follower loop (`follow_batches`):
+the JAX server is one process driving every chip.  A batch that fails on
+any rank ends the server on every rank with a non-zero exit: the others
+would wait in a collective for it (`T2VServer.failed`).  On shutdown rank
+0 broadcasts a stop, and every rank leaves the group.
+
 Determinism: a request's `seed` is reproduced exactly when it runs alone.
 A coalesced batch samples from its first request's seed (each row still
 gets its own noise), with a `torch.Generator` on the pipeline's device;
@@ -41,6 +50,7 @@ gets its own noise), with a `torch.Generator` on the pipeline's device;
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import os
 import queue
@@ -201,10 +211,11 @@ class BatchingWorker:
         with self._lock:
             self._draining = True
 
-    def shutdown(self, timeout: float = 10.0):
+    def shutdown(self, timeout: Optional[float] = 10.0):
         """Refuse new work, settle every request still queued or in the
         backlog with a "server shutting down" error at once, then stop the
-        thread after the batch it may be running."""
+        thread after the batch it may be running (waiting for it at most
+        `timeout` seconds; None: until it ends)."""
         with self._lock:
             self._stopped = True
             left = self._take_all()
@@ -365,8 +376,68 @@ def postprocess(video, remove_watermark: bool,
     return ((frames + 1.0) * 127.5).astype(np.uint8)
 
 
+def run_requests(pipe, requests: List[GenerationRequest], device,
+                 generate=None) -> List[np.ndarray]:
+    """One `generate` for a batch of requests with equal batch keys, then
+    each request's post-process: uint8 frames on the host.  The batch body
+    of the server's worker and of a mesh's follower ranks."""
+    if generate is None:
+        from ..pipelines.inference import generate
+    head = requests[0]
+    prompts = [r.prompt for r in requests]
+    negative = ([head.negative_prompt] * len(requests)
+                if head.negative_prompt else None)
+    seed = head.seed if head.seed is not None else 0
+    init_video, init_weight = None, 0.0
+    if head.init_video_base64:                           # runs_alone(): B=1
+        import tempfile
+        from ..pipelines.inference import load_init_video
+        with tempfile.NamedTemporaryFile(suffix=".mp4") as f:
+            f.write(base64.b64decode(head.init_video_base64))
+            f.flush()
+            init_video = load_init_video(f.name, head.height, head.width,
+                                         head.num_frames)
+        init_weight = head.init_weight
+    videos = generate(
+        pipe, prompts, negative_prompt=negative, width=head.width,
+        height=head.height, num_frames=head.num_frames,
+        window_size=head.resolved_window(),
+        vae_batch_size=head.vae_batch_size, num_steps=head.num_steps,
+        guidance_scale=head.guidance_scale, init_video=init_video,
+        init_weight=init_weight, loop=head.loop, seed=seed)
+    return [postprocess(video, r.remove_watermark, device)
+            for video, r in zip(videos, requests)]
+
+
+def broadcast_batch(requests: Optional[List[GenerationRequest]]):
+    """Rank 0's side of serving on a mesh: a batch's requests go to the
+    other ranks (`broadcast_object_list` over the world) before rank 0 runs
+    it; None ends their `follow_batches` loops."""
+    import torch.distributed as dist
+    dist.broadcast_object_list(
+        [None if requests is None
+         else [dataclasses.asdict(r) for r in requests]], src=0)
+
+
+def follow_batches(pipe, device, generate=None) -> int:
+    """A mesh's rank other than 0: run each batch rank 0 broadcasts with
+    `run_requests` until its stop; returns the batches run.  A failed
+    batch raises (the process exits non-zero)."""
+    import torch.distributed as dist
+    batches = 0
+    while True:
+        message = [None]
+        dist.broadcast_object_list(message, src=0)
+        if message[0] is None:
+            return batches
+        run_requests(pipe, [GenerationRequest(**r) for r in message[0]],
+                     device, generate)
+        batches += 1
+
+
 class T2VServer:
-    """Resident pipeline + batching worker + HTTP front end."""
+    """Resident pipeline + batching worker + HTTP front end; on a mesh,
+    rank 0's part."""
 
     def __init__(self, model: str, host: str = "127.0.0.1", port: int = 8000,
                  output_dir: str = "./serve_output", max_batch: int = 4,
@@ -374,7 +445,7 @@ class T2VServer:
                  use_fused_attention: bool = True, lora_path: str = "",
                  lora_rank: int = 64, lora_scale: float = 1.0,
                  request_timeout_s: float = 3600.0, pipe=None,
-                 max_queue: Optional[int] = None, device="cuda"):
+                 max_queue: Optional[int] = None, device="cuda", mesh=None):
         from ..pipelines.inference import generate, initialize_pipeline
         self.model = model
         self.output_dir = output_dir
@@ -382,12 +453,17 @@ class T2VServer:
         os.makedirs(output_dir, exist_ok=True)
         self.pipe = pipe if pipe is not None else initialize_pipeline(
             model, use_fused_attention, lora_path, lora_rank,
-            lora_scale=lora_scale, device=device)
+            lora_scale=lora_scale, device=device, mesh=mesh)
         self.device = getattr(self.pipe, "device", device)
         self._generate = generate
-        self.worker = BatchingWorker(self._run_batch, max_batch=max_batch,
-                                     batch_window_ms=batch_window_ms,
-                                     max_queue=max_queue)
+        self.mesh = mesh
+        # a batch that failed on a mesh: the server stops, and serve_main
+        # exits non-zero
+        self.failed: Optional[BaseException] = None
+        self.worker = BatchingWorker(
+            self._run_batch if mesh is None else self._run_on_mesh,
+            max_batch=max_batch, batch_window_ms=batch_window_ms,
+            max_queue=max_queue)
         self.started_at = time.time()
         self.httpd = ThreadingHTTPServer((host, port), self._make_handler())
         self.host, self.port = self.httpd.server_address[:2]
@@ -404,32 +480,25 @@ class T2VServer:
     def _run_batch(self, requests: List[GenerationRequest]
                    ) -> List[np.ndarray]:
         """One `generate` for the batch, then each request's post-process:
-        uint8 frames on the host."""
-        head = requests[0]
-        prompts = [r.prompt for r in requests]
-        negative = ([head.negative_prompt] * len(requests)
-                    if head.negative_prompt else None)
-        seed = head.seed if head.seed is not None else 0
-        init_video, init_weight = None, 0.0
-        if head.init_video_base64:                       # runs_alone(): B=1
-            import tempfile
-            from ..pipelines.inference import load_init_video
-            with tempfile.NamedTemporaryFile(suffix=".mp4") as f:
-                f.write(base64.b64decode(head.init_video_base64))
-                f.flush()
-                init_video = load_init_video(f.name, head.height, head.width,
-                                             head.num_frames)
-            init_weight = head.init_weight
-        videos = self._generate(
-            self.pipe, prompts, negative_prompt=negative, width=head.width,
-            height=head.height, num_frames=head.num_frames,
-            window_size=head.resolved_window(),
-            vae_batch_size=head.vae_batch_size, num_steps=head.num_steps,
-            guidance_scale=head.guidance_scale, init_video=init_video,
-            init_weight=init_weight, loop=head.loop, seed=seed)
-        return [postprocess(video, r.remove_watermark, self.device)
-                for video, r in zip(videos, requests)]
+        uint8 frames on the host (`run_requests`)."""
+        return run_requests(self.pipe, requests, self.device, self._generate)
 
+    def _run_on_mesh(self, requests: List[GenerationRequest]
+                     ) -> List[np.ndarray]:
+        """The batch on every rank: broadcast, then run.  A failure ends
+        the server: the batch's requests are answered with it, the HTTP
+        front end stops and `failed` is set."""
+        try:
+            broadcast_batch(requests)
+            return self._run_batch(requests)
+        except BaseException as exc:
+            traceback.print_exc()
+            print("a batch failed on the mesh: the server stops (the other "
+                  "ranks cannot go on without this one)")
+            self.failed = exc
+            threading.Thread(target=self.shutdown, daemon=True,
+                             name="t2v-mesh-failure").start()
+            raise
     def warmup(self, request: Optional[GenerationRequest] = None,
                batch_sizes: Sequence[int] = (1,)) -> GenerationRequest:
         """Run `request` (default: the GenerationRequest defaults, a
@@ -441,7 +510,7 @@ class T2VServer:
         req = request or GenerationRequest(prompt="warmup")
         for b in sorted({min(max(1, int(b)), self.worker.max_batch)
                          for b in batch_sizes}):
-            self.worker.call(lambda b=b: self._run_batch([req] * b))
+            self.worker.call(lambda b=b: self.worker.run_batch([req] * b))
         return req
 
     # -- HTTP ------------------------------------------------------------------
@@ -458,7 +527,14 @@ class T2VServer:
         if self._serving.is_set():
             self.httpd.shutdown()
         self.httpd.server_close()
-        self.worker.shutdown()
+        # on a mesh the worker's batch must end before rank 0 broadcasts
+        # the stop (`stop_followers`)
+        self.worker.shutdown(timeout=None if self.mesh is not None else 10.0)
+
+    def stop_followers(self):
+        """On a mesh, after `shutdown`: end the other ranks' loops."""
+        if self.mesh is not None and self.failed is None:
+            broadcast_batch(None)
 
     def drain_and_shutdown(self, timeout_s: float = 600.0):
         """Graceful stop: new /generate requests get 503, every accepted

@@ -472,7 +472,7 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
     # and shares them with its fsdp group
     shape = mesh_shape(mesh_config(cfg), world)
     dp = shape["dp"]
-    dp_index, fsdp_index = mesh_coords(rank, shape)
+    dp_index, fsdp_index, _, _ = mesh_coords(rank, shape)
     global_batch = cfg.train_batch_size * dp
     row_start, local_batch = local_rows(global_batch, dp_index, dp)
     seed = cfg.seed if cfg.seed is not None else 0
