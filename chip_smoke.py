@@ -111,7 +111,8 @@ all at the full width of the ms-1.7b model (random weights from a seed).
      baked pipeline's UNet and CLIP equal to the lora_path pipeline's bit
      for bit, `<sks>` at the same id, the same video; (c) `T2VServer`
      (max_batch 2, 200 ms window) warmed at batch 1 and 2, the card's busy
-     share over a batch of each traced with torch.profiler, four concurrent
+     share over a batch of each (TRACE_STEPS steps) traced with
+     torch.profiler, four concurrent
      POST /generate (two coalesced into one batch of B=64 for K1, one
      no_batch, one of 24 frames in windows of 8), then img2img from
      request (a)'s mp4 at init_weight 0.5: every answer 200 with its mp4,
@@ -126,24 +127,33 @@ all at the full width of the ms-1.7b model (random weights from a seed).
      on phase 4's pipeline and phase 16's cached latents (the sharded
      load of a pre-built cache), DIST_STEPS steps with checkpoint-2 each:
      (c) one process at train_batch_size 2, in a one-rank NCCL group, the
-     yardstick; then (a) mesh_dp=2 at train_batch_size 1 (global batch 2)
-     and (b) mesh_dp=1 mesh_fsdp=2 at 2 (both ranks one fsdp group,
-     each holding both rows: (c)'s batch), each one `python -m
-     torch.distributed.run` launch of two ranks (this file,
-     `--rank-worker`).  Two or more cards: a card per rank over NCCL; one
-     card: both ranks on cuda:0 over gloo.  (a) and (b) against (c): step
-     1's all-reduced gradient leaf by leaf within GRAD_BF16_RTOL, the
-     losses and gradient norms within LOSS_BF16_RTOL, the trainable
-     tensors within DIST_PARAM_RTOL of (c)'s update with at most
-     DIST_FLIP_MAX of the values moved the other way; every rank's train
-     state equal (digest), only rank 0 opening files for writing,
-     checkpoint-2 and the LoRA files in place, (b)'s pipelines written
-     from rank 0's host copy of the sharded weights, (b)'s ranks holding
-     about half of the frozen bytes, and on every rank of every run the
-     K1-K3 launches at the derived count, all on `sm90`; each rank's step
-     median, gradient all-reduce time and bytes, peak memory and frozen
-     bytes printed.  (The resume on two ranks is held bit for bit on the
-     CPU, tests/test_torch_engine_dist.py: on the card a third run of two
+     yardstick; then (a) mesh_dp=2 at train_batch_size 1 (global batch 2),
+     (b) mesh_dp=1 mesh_fsdp=2 at 2 (both ranks one fsdp group, each
+     holding both rows: (c)'s batch), (d) mesh_dp=1 mesh_sp=2 at 2 (each
+     rank both rows and 4 of the 8 frames, the frame-1 pass whole on
+     both) and (e) mesh_dp=1 mesh_tp=2 at 2 (the step replicated), one
+     after the other in one `python -m torch.distributed.run` launch of
+     two ranks (this file, `--rank-worker`).  Two or more cards: a card per rank over
+     NCCL; one card: both ranks on cuda:0 over gloo.  (a), (b), (d) and
+     (e) against (c): step 1's all-reduced gradient within LOSS_BF16_RTOL
+     over the tree and GRAD_BF16_RTOL leaf by leaf, the losses and
+     gradient norms within LOSS_BF16_RTOL, the trainable tensors within
+     DIST_PARAM_RTOL of (c)'s update with at most DIST_FLIP_MAX of the
+     values moved the other way; (d) and (c) replayed for one step in
+     fp32 with plain attention (FP32_REPLAY), step 1's gradients within
+     TRAIN_FP32_REL_L2_TOL, and a planted fault on (d)'s fp32 replay (the
+     GroupNorm statistics' backward without the other rank's terms) past
+     it; every rank's trainable tensors equal bit for bit after each step
+     and its train state equal (digest), only rank 0 opening files for
+     writing, checkpoint-2 and the LoRA files in place, (b)'s pipelines
+     written from rank 0's host copy of the sharded weights, (b)'s ranks
+     holding about half of the frozen bytes, and on every rank of every
+     run the K1-K3 launches at the derived count by B*F, all on `sm90`;
+     each rank's step median, gradient all-reduce time and bytes, each
+     step's sp all-to-alls and all-gathers (calls, seconds, bytes,
+     forward and backward), peak memory and frozen bytes printed.  (The
+     resume on two ranks is held bit for bit on the CPU,
+     tests/test_torch_engine_dist.py: on the card a third run of two
      ranks took the phase past its time.)
  21. eval and tooling at full width, on a CLIP dual encoder of
      openai/clip-vit-base-patch32's geometry (CLIP_B32_*, random weights
@@ -168,13 +178,14 @@ all at the full width of the ms-1.7b model (random weights from a seed).
      VAE dir with CUT_TENSOR cut by a row, and the `.pt` with two pairs
      swapped (the reorder diagnosis).  Each report is printed.
  22. the inference mesh on phase 4's pipeline, request (a)'s prompt and
-     seed at 256x256, CFG 9 and MESH_STEPS (5) DPM-Solver steps in every
+     seed at 256x256, CFG 9 and MESH_STEPS (3) DPM-Solver steps in every
      run: the yardstick in this process (16 frames, and 24 in windows of
-     8), then four `python -m torch.distributed.run` launches of two ranks
+     8), then one `python -m torch.distributed.run` launch of two ranks
      on cuda:0 over gloo (NCCL refuses two ranks on one card), this file
-     as `--mesh-worker`: (a) `t2v-inference-torch --mesh dp=2`, (b)
-     tp=2, (c) fsdp=2, (d) `t2v-serve-torch --mesh sp=2`, whose rank 0
-     answers a POST of each request and drains.  Each rank: step 1's
+     as `--mesh-worker`, running one after the other (a)
+     `t2v-inference-torch --mesh dp=2`, (b) tp=2, (c) fsdp=2, (d)
+     `t2v-serve-torch --mesh sp=2`, whose rank 0 answers a POST of each
+     request and drains.  Each rank: step 1's
      guided prediction (gathered) within MESH_BF16_RTOL of the
      yardstick's; request (a)'s first UNet input replayed on the same mesh
      on an fp32 pipeline with plain attention, within UNET_FP32_REL_L2_TOL
@@ -201,6 +212,7 @@ step and request times host clock.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -249,6 +261,9 @@ REQUESTS = [
     ("c", "waves crashing on a rocky shore at sunset", 13, 24, 8),
 ]
 STEPS, GUIDANCE, SIZE = 25, 9.0, 256
+# phase 19c's traced batches: DPM-Solver steps (depth cut from STEPS: the
+# profiler took 21-26 s to sum a 25-step batch's kernels)
+TRACE_STEPS = 5
 FLASH_PER_UNET = 5      # 1024-token self-attentions per UNet forward at 256px
 TRAIN_STEPS = 4
 HEADLINE = "conv_attn_dense+skiplow3"   # bench.py's remat policy
@@ -426,7 +441,31 @@ DIST_RUNS = {
     "b_fsdp": (2, dict(_DIST, mesh_dp=1, mesh_fsdp=2, train_batch_size=2)),
     "c_one": (1, dict(_DIST, train_batch_size=2,
                       save_pretrained_model=False)),
+    # (c)'s batch with each clip's 8 frames split over two ranks: the
+    # temporal modules' all-to-alls and distributed GroupNorms in the
+    # forward, the recompute of the checkpointed level 0 and the backward
+    "d_sp": (2, dict(_DIST, mesh_dp=1, mesh_sp=2, train_batch_size=2,
+                     save_pretrained_model=False)),
+    # (c)'s step on each rank of the tp group (the JAX engine does not
+    # split the trained step over tp)
+    "e_tp": (2, dict(_DIST, mesh_dp=1, mesh_tp=2, train_batch_size=2,
+                     save_pretrained_model=False)),
 }
+# (d) and (c) once more, one step in fp32 with plain attention, no
+# checkpoint: step 1's gradient of (d) within TRAIN_FP32_REL_L2_TOL of
+# (c)'s over the tree.  sp changes only the order of sums (the distributed
+# GroupNorm's statistics, GEMMs of other shapes), so the bound is phase
+# 22's fp32 rule, UNET_FP32_REL_L2_TOL; the bf16 runs sit at the
+# random-weight UNet's bf16 floor (PERF.md section 6, PR 12), and this
+# replay shows the arithmetic is one process's.  Written before the first
+# run on the card
+FP32_REPLAY = dict(mixed_precision=None, attention_backend="xla",
+                   max_train_steps=1, checkpointing_steps=100)
+TRAIN_FP32_REL_L2_TOL = 1e-4
+# the planted fault of (d)'s replay: each rank's share of the GroupNorm
+# statistics takes only its own rank's gradient (the all-gather's backward
+# without the all-to-all), which must land past TRAIN_FP32_REL_L2_TOL
+PLANTED = "group_norm_backward_local"
 # (a) and (b) against (c):
 # * step 1's all-reduced gradient, before the clip and the optimizer:
 #   ||g - g_c|| within LOSS_BF16_RTOL of ||g_c|| over the whole tree and
@@ -2176,15 +2215,17 @@ def http_phase(pipeline_dir, root, video_a):
 
     # the card's busy share over a batch of 1 and of 2, traced on this
     # thread while the worker is idle (the profiler's CUPTI client is
-    # registered on the thread that starts it)
+    # registered on the thread that starts it), at TRACE_STEPS steps
+    short = dataclasses.replace(warm, num_steps=TRACE_STEPS)
     for b in (1, 2):
         t0 = time.perf_counter()
-        wall, device = traced(lambda: server._run_batch([warm] * b))
+        wall, device = traced(lambda: server._run_batch([short] * b))
         print(f"trace of batch {b} taken and summed in "
               f"{time.perf_counter() - t0:.1f} s")
         busy = (f"{100 * device / wall:.1f} % busy ({device:.3f} s of "
                 "kernel time)" if device else "no device time traced")
-        print(f"traced batch of {b}: {wall:.2f} s wall, {busy}")
+        print(f"traced batch of {b} ({TRACE_STEPS} steps): {wall:.2f} s "
+              f"wall, {busy}")
 
     batches = []           # (size, frames, window, init, K1, wmma, s)
     run_batch = server.worker.run_batch
@@ -2490,15 +2531,46 @@ def state_digest(snap) -> str:
     return h.hexdigest()
 
 
+def fingerprint(tree) -> str:
+    """A checksum of a tree of card tensors, computed on the card: each
+    tensor's bits as integers, weighted by their position, summed."""
+    as_int = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    sums = []
+    for k, t in sorted(flat_tensors(tree).items()):
+        bits = t.detach().reshape(-1).view(as_int[t.element_size()]).long()
+        weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        sums.append((bits * weights).sum())
+    return ",".join(str(int(x)) for x in torch.stack(sums).cpu())
+
+
 def train_run(argv, watch):
     """`cli.train_main(argv)` (t2v-train-torch) with a `RunRecord`, the
     K1-K5 launches counted around it (zeroed just before, read just
-    after), the files it opens for writing under `watch` counted, and step
-    1's all-reduced gradient kept.  Returns (the record, that gradient as
-    {path: host tensor}, what the run measured)."""
+    after), the files it opens for writing under `watch` counted, step
+    1's all-reduced gradient kept and the trainable tensors' `fingerprint`
+    taken after each step (once the step is timed).  Returns (the record,
+    that gradient as {path: host tensor}, what the run measured)."""
     import builtins
     from text_to_video_finetuning_tpu_torch import cli
     from text_to_video_finetuning_tpu_torch.training import engine
+
+    current, prints = {}, []
+
+    def keeping(make):
+        def make_keeping(cfg, optimizer):
+            step = make(cfg, optimizer)
+
+            def kept(state, batch):
+                current["state"], metrics = step(state, batch)
+                return current["state"], metrics
+            return kept
+        return make_keeping
+
+    class Record(engine.RunRecord):
+        def mark(self, span, device):
+            if span is not None and span.startswith("step "):
+                prints.append(fingerprint(current["state"].trainable))
+            super().mark(span, device)
 
     writes, real_open = [], builtins.open
     watch = os.path.abspath(watch)
@@ -2517,9 +2589,15 @@ def train_run(argv, watch):
             grads.update({k: t.grad.detach().float().cpu()
                           for k, t in flat_tensors(trainable).items()})
         return out
-    record = engine.RunRecord()
+    record = Record()
+    # an earlier run in this process may leave its models in reference
+    # cycles (FSDP2's hooks): free them, so the peaks are this run's
+    gc.collect()
     torch.cuda.empty_cache()
+    makers = engine.make_train_step, engine.make_split_train_step
     builtins.open, engine.all_reduce_grads = watched_open, first_reduce
+    engine.make_train_step, engine.make_split_train_step = map(keeping,
+                                                               makers)
     try:
         zero_counts()                               # the path starts here
         t0 = time.perf_counter()
@@ -2528,39 +2606,86 @@ def train_run(argv, watch):
         launches, by_batch = read_counts(), read_batch_counts()
     finally:
         builtins.open, engine.all_reduce_grads = real_open, real_reduce
+        engine.make_train_step, engine.make_split_train_step = makers
     return record, grads, {
         "rank": record.rank, "world": record.world, "out": out,
         "seconds": seconds, "backend": record.backend,
         "steps": [(t, loss.hex()) for t, loss in record.steps],
         "grad_norms": record.grad_norms,
-        "syncs": record.syncs, "peaks": record.peaks,
+        "syncs": record.syncs, "comm": record.comm, "peaks": record.peaks,
         "frozen_bytes": record.frozen_bytes, "launches": launches,
         "by_batch": by_batch, "writes": len(writes),
-        "digest": state_digest(record.final)}
+        "prints": prints, "digest": state_digest(record.final)}
+
+
+def plant(fault: str):
+    """Break the port in this process as `fault` names (PLANTED); returns
+    the function that repairs it."""
+    import torch.distributed as dist
+    from text_to_video_finetuning_tpu_torch.parallel import comm
+    if fault != PLANTED:
+        fail(f"unknown planted fault {fault!r}")
+    real = comm._AllGather.backward
+
+    def local_only(ctx, grad):
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return grad.chunk(n, dim=ctx.dim)[r].contiguous(), None, None
+    comm._AllGather.backward = staticmethod(local_only)
+    return lambda: setattr(comm._AllGather, "backward", staticmethod(real))
 
 
 def rank_worker(spec_path: str) -> int:
-    """A rank of one of phase 20's two-rank runs, started by torchrun: the
-    run goes through `train_run` (the engine starts and leaves the process
-    group) and writes what it measured to `<dir>/<label>.rank<r>.json`;
-    rank 0 also saves the final trainable tensors and step 1's gradient."""
+    """A rank of phase 20's two-rank runs, all in one torchrun launch: each
+    of the spec's "runs" (label, config, the directory whose writes it
+    counts, replays) goes through `train_run`
+    (the engine starts and leaves its process group), rank 0 saving its
+    final trainable tensors to `<dir>/<label>.pt` and step 1's gradient to
+    `<dir>/<label>.grads.pt`; then each of the run's replays (name,
+    config, planted fault or None) runs the same way, rank 0 saving step
+    1's gradient to `<dir>/<label>.<name>.grads.pt`; each run starts and
+    leaves its own process group (`own_rendezvous`).  What each run
+    measured goes to `<dir>/<spec label>.rank<r>.json`."""
     import faulthandler
     faulthandler.enable()           # a crash in a rank prints its stack
     with open(spec_path) as f:
         spec = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    label = spec["label"]
-    record, grads, result = train_run(
-        ["--config", spec["config"], "--device", spec["device"],
-         "--backend", spec["backend"]], spec["watch"])
-    if record.rank == 0:
-        torch.save(record.final["trainable"],
-                   os.path.join(spec["dir"], f"{label}.pt"))
-        torch.save(grads, os.path.join(spec["dir"], f"{label}.grads.pt"))
-    with open(os.path.join(spec["dir"], f"{label}.rank{record.rank}.json"),
+    rank = int(os.environ["RANK"])
+
+    def run(config, watch, fault=None):
+        repair = plant(fault) if fault else (lambda: None)
+        try:
+            return train_run(["--config", config, "--device",
+                              spec["device"], "--backend", spec["backend"]],
+                             watch)
+        finally:
+            repair()
+
+    out = {"runs": {}}
+    t0 = time.perf_counter()
+    undo = own_rendezvous(spec)
+    try:
+        for label, config, watch, replays in spec["runs"]:
+            record, grads, out["runs"][label] = run(config, watch)
+            if rank == 0:
+                torch.save(record.final["trainable"],
+                           os.path.join(spec["dir"], f"{label}.pt"))
+                torch.save(grads, os.path.join(spec["dir"],
+                                               f"{label}.grads.pt"))
+            del record, grads
+            for name, replay, fault in replays:
+                _, grads, _ = run(replay, watch, fault)
+                if rank == 0:
+                    torch.save(grads, os.path.join(
+                        spec["dir"], f"{label}.{name}.grads.pt"))
+                del grads
+    finally:
+        undo()
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(spec["dir"], f"{spec['label']}.rank{rank}.json"),
               "w") as f:
-        json.dump(result, f)
+        json.dump(out, f)
     return 0
 
 
@@ -2593,8 +2718,8 @@ def torchrun(nproc, spec, timeout=900, worker="--rank-worker"):
                                f"{spec['label']}.rank{r}.json")) as f:
             ranks.append(json.load(f))
     print(f"[{spec['label']}] torchrun, {nproc} ranks: "
-          f"{time.perf_counter() - t0:.1f} s (launch, then the run's load, "
-          f"steps and saves: {ranks[0]['seconds']:.1f} s)")
+          f"{time.perf_counter() - t0:.1f} s (launch, then the runs: "
+          f"{ranks[0]['seconds']:.1f} s)")
     return ranks
 
 
@@ -2630,13 +2755,16 @@ def dist_phase(pipeline_dir, root):
     pre-built `cached_latent_dir`: the sharded load) through t2v-train-torch
     (`cli.train_main`), the models' dropout off: (c) one process at
     train_batch_size 2, the yardstick, here, in a one-rank NCCL group; then
-    (a) mesh_dp=2 at train_batch_size 1 and (b) mesh_dp=1 mesh_fsdp=2 at 2,
-    each a `python -m torch.distributed.run` launch of two ranks.  With two
-    or more cards each rank has its own, over NCCL; with one card NCCL
-    refuses two ranks on it, so they share cuda:0 over gloo, and (c) runs
-    NCCL on the card either way.  Checks: `dist_report` on every run,
-    `dist_checks` across them.  Returns the launches of each run summed
-    over its ranks."""
+    (a) mesh_dp=2 at train_batch_size 1, (b) mesh_dp=1 mesh_fsdp=2, (d)
+    mesh_dp=1 mesh_sp=2 and (e) mesh_dp=1 mesh_tp=2 at 2, one after the
+    other in one `python -m torch.distributed.run` launch of two ranks;
+    (d)'s ranks then replay step 1 in fp32 (FP32_REPLAY), once as they are
+    and once with the PLANTED fault, and (c) replays it here.  With two or more cards each
+    rank has its own, over NCCL; with one card NCCL refuses two ranks on
+    it, so they share cuda:0 over gloo, and (c) runs NCCL on the card
+    either way.  Checks: `dist_report` on every run, `dist_checks` across
+    them.  Returns the launches of each run summed over its ranks (the
+    main runs': the fp32 replays take plain attention)."""
     from text_to_video_finetuning_tpu_torch.config import (
         save_config, train_config_from_dict)
 
@@ -2660,20 +2788,36 @@ def dist_phase(pipeline_dir, root):
                                      json_path, cache_dir)
         paths[label] = f"{runs}/{label}.yaml"
         save_config(train_config_from_dict(configs[label]), paths[label])
+    for label in ("c_one", "d_sp"):
+        paths[f"{label}_fp32"] = f"{runs}/{label}_fp32.yaml"
+        save_config(train_config_from_dict(dist_config(
+            label, pipeline_dir, f"{runs}/{label}_fp32", json_path,
+            cache_dir, **FP32_REPLAY)), paths[f"{label}_fp32"])
+    replays = {"d_sp": [("fp32", paths["d_sp_fp32"], None),
+                        ("planted", paths["d_sp_fp32"], PLANTED)]}
     try:
         c_record, c_grads, c_result = one_rank_nccl(paths["c_one"],
                                                     f"{runs}/c_one")
         results = {"c_one": [c_result]}
-        for label in ("a_dp", "b_fsdp"):
-            torch.cuda.empty_cache()
-            results[label] = torchrun(DIST_RUNS[label][0], {
-                "device": device, "backend": backend, "dir": runs,
-                "label": label, "config": paths[label],
-                "watch": f"{runs}/{label}"})
+        torch.cuda.empty_cache()
+        _, c_fp32_grads, _ = one_rank_nccl(paths["c_one_fp32"],
+                                           f"{runs}/c_one_fp32")
+        torch.cuda.empty_cache()
+        # every two-rank run in one launch: its start-up is paid once
+        several = [label for label, (n, _) in DIST_RUNS.items() if n > 1]
+        ranks = torchrun(2, {
+            "device": device, "backend": backend, "dir": runs,
+            "label": "dist",
+            "runs": [(label, paths[label], f"{runs}/{label}",
+                      replays.get(label, [])) for label in several]})
+        for label in several:
+            results[label] = [r["runs"][label] for r in ranks]
+            print(f"[{label}] {results[label][0]['seconds']:.1f} s (the "
+                  "run's load, steps and saves)")
         for label in DIST_RUNS:
             dist_report(label, configs[label], results[label], keys,
                         backend if DIST_RUNS[label][0] > 1 else "nccl")
-        dist_checks(results, runs, c_record, c_grads)
+        dist_checks(results, runs, c_record, c_grads, c_fp32_grads)
     finally:
         shutil.rmtree(runs, ignore_errors=True)
     return {label: {k: sum(r["launches"][k] for r in ranks)
@@ -2683,14 +2827,19 @@ def dist_phase(pipeline_dir, root):
 
 def dist_report(label, cfg, ranks, keys, backend):
     """Print a run's numbers per rank and hold its launches: K1-K3 at the
-    derived count per step and by batch (the rank's rows), all on `sm90`,
-    no K4/K5 (fused_groupnorm is off); every loss finite; every rank's
-    logged losses equal (the all-reduced mean) and its state too; each
+    derived count per step and by B*F (the rank's rows and frames), all on
+    `sm90`, no K4/K5 (fused_groupnorm is off); every loss finite; every
+    rank's logged losses equal (the all-reduced mean), its trainable
+    tensors after each step (`fingerprint`) and its final state too; each
     rank in a process group of `backend` over the run's ranks."""
     steps = cfg["max_train_steps"]
     world = len(ranks)
-    # a rank holds the train_batch_size rows of its dp index
-    local_keys = dict(keys, train_batch_size=cfg["train_batch_size"])
+    # a rank holds the train_batch_size rows of its dp index and its sp
+    # index's share of each clip's frames (pass 0; the frame-1 pass whole)
+    td = keys["train_data"]
+    local_keys = dict(keys, train_batch_size=cfg["train_batch_size"],
+                      train_data=dict(td, n_sample_frames=td[
+                          "n_sample_frames"] // cfg.get("mesh_sp", 1)))
     expected = engine_expected(local_keys)
     want_batch = expected_batches(local_keys, expected, steps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2731,8 +2880,23 @@ def dist_report(label, cfg, ranks, keys, backend):
         if len(r["syncs"]) != steps:
             fail(f"[{label}] rank {r['rank']}: {len(r['syncs'])} gradient "
                  f"all-reduces over {steps} steps")
+        for i, (step, (t, n)) in enumerate(zip(r["comm"], r["syncs"])):
+            print(f"[{label}] rank {r['rank']} step {i + 1}: " + ", ".join(
+                f"{k} {v['calls']} calls {v['bytes']} B {v['seconds']:.4f} s"
+                for k, v in step.items())
+                + f" (sp, forward and backward); gradient all-reduce {n} B "
+                f"{t:.4f} s")
+        sp_calls = [c["all_to_all"]["calls"] for c in r["comm"]]
+        if cfg.get("mesh_sp", 1) > 1 and not (
+                len(sp_calls) == steps and all(sp_calls)):
+            fail(f"[{label}] rank {r['rank']}: sp all-to-alls {sp_calls} "
+                 f"over {steps} steps")
     print(f"[{label}] launches per rank {want} over {steps} steps, by "
-          f"batch {want_batch}, all on sm90")
+          f"B*F {want_batch}, all on sm90")
+    prints = [r["prints"] for r in ranks]
+    if len(prints[0]) != steps or any(p != prints[0] for p in prints):
+        fail(f"[{label}] the ranks' trainable tensors differ after a step: "
+             f"{[[x[:24] for x in p] for p in prints]}")
     if len({tuple(x for _, x in r["steps"]) for r in ranks}) != 1:
         fail(f"[{label}] the ranks logged different losses")
     if len({r["digest"] for r in ranks}) != 1:
@@ -2777,19 +2941,38 @@ def grad_agreement(grads, ref):
              float(ref[k].double().norm())) for k in sorted(ref)]
 
 
-def dist_checks(results, runs, c_record, c_grads):
-    """Phase 20's comparisons across runs (see DIST_RUNS): (a) and (b)
-    against (c), and (a) against (b), reported; the files.  Every
+def dist_checks(results, runs, c_record, c_grads, c_fp32_grads):
+    """Phase 20's comparisons across runs (see DIST_RUNS): every run of
+    several ranks against (c), and (a) against (b), reported; (d)'s fp32
+    replay and its planted fault against (c)'s; the files.  Every
     comparison is printed before the phase fails on the misses."""
     a, b, c = (results[k] for k in ("a_dp", "b_fsdp", "c_one"))
+    several = [label for label, (n, _) in DIST_RUNS.items() if n > 1]
     initial = c_record.initial["trainable"]
     states = {"c_one": c_record.final["trainable"],
-              "a_dp": torch.load(f"{runs}/a_dp.pt"),
-              "b_fsdp": torch.load(f"{runs}/b_fsdp.pt")}
-    grads = {"c_one": c_grads, "a_dp": torch.load(f"{runs}/a_dp.grads.pt"),
-             "b_fsdp": torch.load(f"{runs}/b_fsdp.grads.pt")}
+              **{x: torch.load(f"{runs}/{x}.pt") for x in several}}
+    grads = {"c_one": c_grads,
+             **{x: torch.load(f"{runs}/{x}.grads.pt") for x in several}}
+    pairs = [(x, "c_one") for x in several] + [("a_dp", "b_fsdp")]
     misses = []
-    for x, y in (("a_dp", "c_one"), ("b_fsdp", "c_one"), ("a_dp", "b_fsdp")):
+    for name in ("fp32", "planted"):
+        got = torch.load(f"{runs}/d_sp.{name}.grads.pt")
+        leaves = grad_agreement(got, c_fp32_grads)
+        off = math.sqrt(sum(o * o for _, o, _ in leaves))
+        ref = math.sqrt(sum(n * n for _, _, n in leaves))
+        worst = max((o / n, k) for k, o, n in leaves if n)
+        print(f"[d_sp] step 1's gradient in fp32, plain attention"
+              f"{', planted: ' + PLANTED if name == 'planted' else ''}: "
+              f"||g - g_c|| / ||g_c|| {off / ref:.3e} over {len(leaves)} "
+              f"leaves (TRAIN_FP32_REL_L2_TOL {TRAIN_FP32_REL_L2_TOL}), the "
+              f"worst leaf {worst[0]:.3e} ({worst[1]})")
+        if (off > TRAIN_FP32_REL_L2_TOL * ref) != (name == "planted"):
+            misses.append(f"[d_sp] the {name} fp32 replay's gradient "
+                          f"{off / ref:.3e} of (c)'s: "
+                          + ("the planted fault was not caught"
+                             if name == "planted" else
+                             "past TRAIN_FP32_REL_L2_TOL"))
+    for x, y in pairs:
         leaves = grad_agreement(grads[x], grads[y])
         off = math.sqrt(sum(o * o for _, o, _ in leaves))
         ref = math.sqrt(sum(n * n for _, _, n in leaves))
@@ -2819,7 +3002,8 @@ def dist_checks(results, runs, c_record, c_grads):
                           f"e.g. {over[:3]}")
     want = [float.fromhex(x) for _, x in c[0]["steps"]]
     want_norms = c[0]["grad_norms"]
-    for label, ranks in (("a_dp", a), ("b_fsdp", b)):
+    for label in several:
+        ranks = results[label]
         got = [float.fromhex(x) for _, x in ranks[0]["steps"]]
         norms = ranks[0]["grad_norms"]
         rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
@@ -2834,7 +3018,7 @@ def dist_checks(results, runs, c_record, c_grads):
         if max(rel + rel_norms) > LOSS_BF16_RTOL:
             misses.append(f"[{label}] losses {got} or gradient norms {norms}"
                           f" differ from one process's {want}, {want_norms}")
-    for x, y in (("a_dp", "c_one"), ("b_fsdp", "c_one"), ("a_dp", "b_fsdp")):
+    for x, y in pairs:
         update = tree_distance(states[y], initial)
         off = tree_distance(states[x], states[y])
         flips, rest = update_agreement(initial, states[x], states[y])
@@ -2851,7 +3035,8 @@ def dist_checks(results, runs, c_record, c_grads):
     # rank 0 alone writes: the LoRA files, the checkpoint and (b)'s
     # pipelines, from its host copy of the sharded frozen weights
     ckpt = f"checkpoint-{DIST_CKPT}"
-    for label, ranks in (("a_dp", a), ("b_fsdp", b)):
+    for label in several:
+        ranks = results[label]
         run = ranks[0]["out"]
         for where in (os.path.join(run, ckpt), run):
             names = lora_files(where)
@@ -3213,7 +3398,7 @@ def eval_phase(pipeline_dir, root):
 
 # -- phase 22: the inference mesh --------------------------------------------
 
-MESH_STEPS = 5          # DPM-Solver steps of every phase-22 run (depth, not
+MESH_STEPS = 3          # DPM-Solver steps of every phase-22 run (depth, not
                         # width, cut so that the phase fits)
 # step 1's guided prediction of a bf16 mesh run against one process's,
 # relative L2.  A mesh changes only the order of the sums (tp's
@@ -3420,23 +3605,63 @@ def serve_on_mesh(spec, rank):
                      if status == 200]
 
 
+def own_rendezvous(spec):
+    """Patch `init_process_group` so that every process group this rank
+    starts after torchrun's first meets at a `file://` rendezvous of its
+    own in the spec's dir (a second group on torchrun's store would meet
+    the first one's keys); returns the function that undoes the patch."""
+    init, groups = torch.distributed.init_process_group, []
+
+    def init_own(*args, **kwargs):
+        groups.append(None)
+        if len(groups) > 1:
+            rendezvous = os.path.join(
+                spec["dir"], f"{spec['label']}.{len(groups)}.rendezvous")
+            kwargs.update(init_method=f"file://{rendezvous}",
+                          rank=int(os.environ["RANK"]),
+                          world_size=int(os.environ["WORLD_SIZE"]))
+        return init(*args, **kwargs)
+    torch.distributed.init_process_group = init_own
+    return lambda: setattr(torch.distributed, "init_process_group", init)
+
+
 def mesh_worker(spec_path: str) -> int:
-    """A rank of one of phase 22's two-rank runs, started by torchrun:
-    `t2v-inference-torch --mesh` (request (a) at MESH_STEPS) or
-    `t2v-serve-torch --mesh`, each under a `SamplingRecord` with the K1
-    launches counted around it (zeroed just before, read just after).
-    Writes `<dir>/<label>.rank<r>.json` and the rank's tensors."""
+    """A rank of phase 22's two-rank runs, all in one torchrun launch (each
+    run starts and leaves its own process group, `own_rendezvous`): for
+    each of the spec's "runs", `t2v-inference-torch --mesh` (request (a)
+    at MESH_STEPS) or `t2v-serve-torch --mesh`, each under a
+    `SamplingRecord` with the K1 launches counted around it (zeroed just
+    before, read just after).  Writes `<dir>/<run label>.rank<r>.json` and
+    the rank's tensors for each run, and its seconds to
+    `<dir>/<spec label>.rank<r>.json`."""
     import faulthandler
     faulthandler.enable()
     with open(spec_path) as f:
         spec = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from text_to_video_finetuning_tpu_torch import cli
     rank = int(os.environ["RANK"])
+    t0 = time.perf_counter()
+    undo = own_rendezvous(spec)
+    try:
+        for run in spec["runs"]:
+            mesh_run(dict(spec, **run), rank)
+    finally:
+        undo()
+    with open(os.path.join(spec["dir"], f"{spec['label']}.rank{rank}.json"),
+              "w") as f:
+        json.dump({"seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
+def mesh_run(spec, rank):
+    """One phase-22 run on this rank (see `mesh_worker`)."""
+    from text_to_video_finetuning_tpu_torch import cli
     label = spec["label"]
     answers = []
     replay = (spec["pipeline"], 0 if spec["kind"] == "inference" else 1)
+    gc.collect()                # the runs before, as in `train_run`
+    torch.cuda.empty_cache()
     with SamplingRecord(replay) as rec:
         zero_counts()                               # the path starts here
         t0 = time.perf_counter()
@@ -3460,7 +3685,6 @@ def mesh_worker(spec_path: str) -> int:
                    "answers": answers, "requests": rec.summary(),
                    "layout": rec.layout, "launches": launches,
                    "by_batch": by_batch}, f)
-    return 0
 
 
 def mesh_expected(kind, mesh):
@@ -3595,9 +3819,9 @@ def mesh_report(label, kind, mesh, ranks, runs, yard):
 def mesh_phase(pipeline_dir, root):
     """Phase 22: the inference mesh at full ms-1.7b width on phase 4's
     pipeline.  The yardstick, one process on the card (`mesh_yardstick`);
-    then MESH_RUNS, each one `python -m torch.distributed.run` launch of
-    two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card),
-    this file as `--mesh-worker`: (a) `t2v-inference-torch --mesh dp=2`,
+    then MESH_RUNS, one after the other in one `python -m
+    torch.distributed.run` launch of two ranks on cuda:0 over gloo (NCCL
+    refuses two ranks on one card), this file as `--mesh-worker`: (a) `t2v-inference-torch --mesh dp=2`,
     (b) tp=2, (c) fsdp=2, (d) `t2v-serve-torch --mesh sp=2`, whose rank 0
     answers two POSTs (16 frames, then 24 in windows of 8) and drains.
     Each run (`mesh_report`): step 1's guided prediction within
@@ -3613,13 +3837,22 @@ def mesh_phase(pipeline_dir, root):
     try:
         yard, yard_launches = mesh_yardstick(pipeline_dir)
         out = {"mesh_yardstick": yard_launches}
+        torch.cuda.empty_cache()
+        # every run in one launch: its start-up is paid once
+        torchrun(2, {
+            "device": "cuda:0", "backend": "gloo", "dir": runs,
+            "label": "mesh", "pipeline": pipeline_dir,
+            "runs": [{"label": label, "kind": kind, "mesh": mesh,
+                      "out": f"{runs}/{label}_out"}
+                     for label, (kind, mesh) in MESH_RUNS.items()]},
+            timeout=900, worker="--mesh-worker")
         for label, (kind, mesh) in MESH_RUNS.items():
-            torch.cuda.empty_cache()
-            ranks = torchrun(2, {
-                "device": "cuda:0", "backend": "gloo", "dir": runs,
-                "label": label, "kind": kind, "mesh": mesh,
-                "pipeline": pipeline_dir, "out": f"{runs}/{label}_out"},
-                timeout=600, worker="--mesh-worker")
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(runs, f"{label}.rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            print(f"[{label}] {ranks[0]['seconds']:.1f} s (the run's "
+                  "load, requests and replay)")
             mesh_report(label, kind, mesh, ranks, runs, yard)
             out[f"mesh_{label}"] = {k: sum(r["launches"][k] for r in ranks)
                                     for k in ranks[0]["launches"]}
@@ -3763,6 +3996,7 @@ def main() -> int:
     # 20. lora_training_config.yaml on two ranks under torchrun
     dist = dist_phase(pipeline_dir, workdir.name)
     by_path["dp_lora"], by_path["fsdp_lora"] = dist["a_dp"], dist["b_fsdp"]
+    by_path["sp_lora"], by_path["tp_lora"] = dist["d_sp"], dist["e_tp"]
     by_path["one_rank_nccl_lora"] = dist["c_one"]
     torch.cuda.empty_cache()
 

@@ -13,10 +13,9 @@ interop check) and synthetic mp4.
   checkpoints and from each run's `engine.RunRecord`;
 * `checkpoints_total_limit`; the SIGTERM checkpoint; a non-finite
   micro-batch dropped by `skip_nonfinite_updates`;
-* each option not ported yet (the tp and sp mesh axes, CLIP-score
-  validation) raises `NotImplementedError` naming its ROADMAP item, and a
-  dp / fsdp mesh larger than the one process raises `ValueError`, before
-  the run directory exists.
+* what cannot run is refused before the run directory exists: a tp / dp
+  / fsdp mesh larger than the one process, a clip that `mesh_sp` does not
+  split, CLIP-score validation without a CLIP model dir (`ValueError`).
 """
 
 import glob
@@ -312,8 +311,12 @@ def test_nonfinite_micro_batch_is_skipped(tiny_pipeline_dir, tiny_video,
 
 
 @pytest.mark.parametrize("option,error,match", [
-    (dict(mesh_tp=2), NotImplementedError, "ROADMAP Queue 1 item 5c$"),
-    (dict(mesh_sp=2), NotImplementedError, "ROADMAP Queue 1 item 5c$"),
+    # training takes tp and sp: one process cannot hold tp=2, and the
+    # minimal config's 4 frames do not split over sp=3 (checked first)
+    (dict(mesh_tp=2), ValueError,
+     "1 devices not divisible by fsdp\\*tp\\*sp=2"),
+    (dict(mesh_sp=3), ValueError, "n_sample_frames=4 is not divisible by "
+     "mesh_sp=3"),
     # the JAX engine's early errors (engine.py:658-674): CLIP-score
     # validation with no CLIP model dir, or one without a config.json
     (dict(validation_data=dict(compute_clip_score=True)), ValueError,

@@ -6,8 +6,9 @@
   coordinates (`mesh_coords`) against its device's place in the JAX mesh;
   a spec for fewer ranks than the world raises where JAX takes the first
   devices (the one difference);
-* training's `tp` / `sp` above 1 refused naming ROADMAP Queue 1 item 5c
-  (`refuse_unported`), and by `t2v-train-torch` before any load;
+* training's `tp` / `sp` above 1 checked before any load: a tp mesh the
+  world cannot hold fails on its size, a clip that sp does not split on
+  its frames (`check_frames`), both through `t2v-train-torch` too;
 * `init_distributed`: nothing without torchrun's variables; NCCL on
   `cuda:{LOCAL_RANK}`, gloo on the CPU, a named backend as named; a rank
   without its card refused;
@@ -92,20 +93,41 @@ def test_mesh_specs_match_jax(spec):
                                     pmesh.MeshConfig(dp=2, sp=4)],
                          ids=["tp", "sp"])
 def test_tp_and_sp_are_refused_naming_5b(config):
-    """Training's refusal; inference and serving take tp and sp."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 5c$"):
-        pmesh.refuse_unported(config)
+    """Training takes tp and sp (ROADMAP Queue 1 item 5c, done): what is
+    refused before the run is a mesh the world cannot hold, and under sp
+    a clip whose frames do not split evenly; every other clip passes."""
+    too_big = ("needs 8 devices, have 1" if config.dp > 0 else
+               "1 devices not divisible by fsdp\\*tp\\*sp=2")
+    with pytest.raises(ValueError, match=too_big):
+        pmesh.mesh_shape(config, 1)
+    pmesh.mesh_shape(config, 8)
+    frames = {"train_data (json)": 8, "extra_train_data[0] (folder)": 16}
+    pmesh.check_frames(config, frames)
+    frames["train_data (json)"] = 6
+    if config.sp > 1:
+        with pytest.raises(ValueError, match=r"train_data \(json\): "
+                           "n_sample_frames=6 is not divisible by mesh_sp=4"):
+            pmesh.check_frames(config, frames)
+    else:
+        pmesh.check_frames(config, frames)
 
 
 def test_the_train_cli_refuses_tp_before_any_load(tmp_path):
+    """One process cannot hold mesh_tp=2: the error of the mesh's size,
+    before the (absent) pipeline is read or the run directory exists; and
+    a clip of 3 frames under mesh_sp=2, before the mesh is sized."""
     path = tmp_path / "c.yaml"
-    path.write_text(yaml.safe_dump(dict(
-        pretrained_model_path=str(tmp_path / "none"),
-        output_dir=str(tmp_path / "o"), mesh_tp=2)))
-    with pytest.raises(NotImplementedError, match="item 5c$"):
-        cli.train_main(["--config", str(path), "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "o")
+    for keys, match in ((dict(mesh_tp=2), "1 devices not divisible by "
+                         "fsdp\\*tp\\*sp=2"),
+                        (dict(mesh_sp=2, dataset_types=["json"],
+                              train_data=dict(n_sample_frames=3)),
+                         "n_sample_frames=3 is not divisible by mesh_sp=2")):
+        path.write_text(yaml.safe_dump(dict(
+            pretrained_model_path=str(tmp_path / "none"),
+            output_dir=str(tmp_path / "o"), **keys)))
+        with pytest.raises(ValueError, match=match):
+            cli.train_main(["--config", str(path), "--device", "cpu"])
+        assert not os.path.exists(tmp_path / "o")
 
 
 class FakeDist:

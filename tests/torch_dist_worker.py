@@ -1,7 +1,7 @@
 """Ranks of the port in their own processes, for the multi-process CPU tests
 (test_torch_parallel.py, test_torch_engine_dist.py,
-test_torch_mesh_inference.py).  No JAX here: the children import only
-torch and the port.
+test_torch_mesh_inference.py, test_torch_mesh_training.py).  No JAX here:
+the children import only torch and the port.
 
 `run_ranks(target, world, tmp, args)` starts `world` interpreters on this
 file, with torchrun's RANK / WORLD_SIZE / LOCAL_RANK set; each runs
@@ -158,10 +158,11 @@ def _engine(rank, world, args):
     args["cli"]) with its RunRecord; every step's metrics; with
     args["poison"] = (rank, step) that rank's rows at that micro-step
     multiplied by NaN; with args["grads"] step 1's gradients
-    (`keep_first_grads`); with args["sigterm"] = (rank, n) a SIGTERM to that
-    rank after its n-th step; with args["masks"] a digest of each temporal
-    dropout mask; and every file the rank opened for writing under
-    args["watch"]."""
+    (`keep_first_grads`), and with args["local_grads"] this rank's own
+    before the all-reduce; with args["sigterm"] = (rank, n) a SIGTERM to
+    that rank after its n-th step; with args["masks"] a digest of each
+    temporal dropout mask; and every file the rank opened for writing under
+    args["watch"] (and each latent cache item it wrote)."""
     import builtins
 
     from text_to_video_finetuning_tpu_torch import cli
@@ -211,10 +212,28 @@ def _engine(rank, world, args):
                 writes.append(os.fspath(file))
             return real_open(file, mode, *a, **kw)
         builtins.open = watched_open
+        # the latent cache is written by the native writer
+        from text_to_video_finetuning_tpu_torch.data import native
+        real_write = native.cache_write_item
 
-    grads = {}
+        def watched_write(path, *a, **kw):
+            writes.append(os.fspath(path))
+            return real_write(path, *a, **kw)
+        native.cache_write_item = watched_write
+
+    grads, local = {}, {}
     if args.get("grads"):
         keep_first_grads(engine, grads)
+    if args.get("local_grads"):
+        from text_to_video_finetuning_tpu_torch.training.optim import leaves
+        reduce = engine.all_reduce_grads
+
+        def keep_local(trainable, *a, **kw):
+            if not local:
+                local.update({i: t.grad.clone() for i, t in
+                              enumerate(leaves(trainable))})
+            return reduce(trainable, *a, **kw)
+        engine.all_reduce_grads = keep_local
     record = engine.RunRecord()
     if args.get("cli"):
         out = cli.train_main(["--config", args["cli"], "--device", "cpu"],
@@ -222,10 +241,11 @@ def _engine(rank, world, args):
     else:
         out = engine.main(device="cpu", record=record, **args["config"])
     return {"out": out, "metrics": metrics, "masks": masks, "grads": grads,
-            "writes": writes, "steps": record.steps,
+            "local_grads": local, "writes": writes, "steps": record.steps,
             "initial": record.initial, "final": record.final,
             "digest": state_digest(record.final),
-            "syncs": record.syncs, "frozen_bytes": record.frozen_bytes}
+            "syncs": record.syncs, "comm": record.comm,
+            "frozen_bytes": record.frozen_bytes}
 
 
 def _grads(rank, world, args):
@@ -370,6 +390,52 @@ def _sp_ops(rank, world, args):
     return out
 
 
+def _sp_backward(rank, world, args):
+    """The backward of the sp collectives and the distributed GroupNorm:
+    for each of args["cases"], (x, dy, groups, eps) whole on every rank,
+    this rank's frames of x through `frames_to_positions`, `group_norm`
+    and `positions_to_frames`, then sum(out * dy) backward.  Returns the
+    output, the gradients of this rank's frames, of the norm's weight and
+    bias (this rank's share of them) and of the positions, padding
+    included."""
+    from text_to_video_finetuning_tpu_torch.parallel import comm, sequence
+
+    _mesh_group(world, f"sp={world}")
+    sp = sequence.sequence_group(torch.distributed.group.WORLD)
+    out = []
+    try:
+        for x, dy, groups, eps in args["cases"]:
+            b, c, f, h, w = x.shape
+            n = f // world
+            mine = x[:, :, rank * n:(rank + 1) * n].reshape(
+                b, c, n, h * w).clone().requires_grad_()
+            norm = torch.nn.GroupNorm(groups, c, eps=eps)
+            with torch.no_grad():
+                norm.weight.copy_(torch.linspace(0.5, 1.5, c))
+                norm.bias.copy_(torch.linspace(-0.2, 0.2, c))
+            comm.reset_stats()
+            positions = sequence.frames_to_positions(mine, sp)
+            positions.retain_grad()
+            y = sequence.group_norm(positions, norm, sp,
+                                    sequence.valid_positions(sp, h * w))
+            back = sequence.positions_to_frames(y, sp, h * w)
+            forward = {k: dict(v) for k, v in comm.STATS.items()}
+            comm.reset_stats()
+            (back * dy[:, :, rank * n:(rank + 1) * n].reshape(
+                back.shape)).sum().backward()
+            out.append({"out": back.detach(), "dx": mine.grad,
+                        "dweight": norm.weight.grad,
+                        "dbias": norm.bias.grad,
+                        "dpositions": positions.grad,
+                        "valid": sequence.valid_positions(sp, h * w),
+                        "forward": forward,
+                        "backward": {k: dict(v)
+                                     for k, v in comm.STATS.items()}})
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
 def _tp(rank, world, args):
     """The UNet of args["config"] (seeded weights), one process's forward,
     then `split_tp` over the world and the forward again; what the split
@@ -472,9 +538,155 @@ def _serve(rank, world, args):
             "http": answers_http}
 
 
+def _grad_keys(trainable):
+    return {(group, site, leaf): t
+            for group, sites in trainable.items()
+            for site, e in sites.items() for leaf, t in e.items()}
+
+
+def _models(spec):
+    """The micro UNet, the tiny CLIP and (for pixel batches) the tiny VAE
+    of `spec`'s state dicts, frozen."""
+    from text_to_video_finetuning_tpu_torch.models import clip_text as pclip
+    from text_to_video_finetuning_tpu_torch.models import unet3d as punet
+    from text_to_video_finetuning_tpu_torch.models import vae as pvae
+
+    unet = punet.UNet3DConditionModel(punet.micro_unet_config())
+    unet.load_state_dict(spec["unet"], strict=True)
+    clip = pclip.CLIPTextModel(pclip.tiny_clip_config(**spec["clip_config"]))
+    clip.load_state_dict(spec["clip"], strict=True)
+    vae = None
+    if spec.get("vae") is not None:
+        vae = pvae.AutoencoderKL(pvae.tiny_vae_config())
+        vae.load_state_dict(spec["vae"], strict=True)
+    for m in (unet, clip, vae):
+        if m is not None:
+            m.requires_grad_(False)
+    return unet, clip, vae
+
+
+class _KeepGrads:
+    """An optimizer that applies nothing: the steps' gradients stay."""
+
+    def step(self, opt_state, step):
+        return torch.zeros(())
+
+
+def _mesh_step(rank, world, args):
+    """The port's train step (`make_train_step`, or `make_split_train_step`
+    with a case's "split") on the mesh args["mesh"], for each of
+    args["cases"]: this rank's rows (dp) and share of each clip's frames
+    (sp) of the case's global batch, with the case's draws for the whole of
+    it (JAX's), the gradients all-reduced as the engine's `grad_sync`
+    does.  A case names its models (args["models"]), trainable LoRA trees,
+    LoRA targets, `cache_latents`, remat policy, `eval_train` and default
+    generator seed.  Returns per case the all-reduced gradients, this
+    rank's own before the reduce, the world-mean losses, the sp
+    collectives' stats and each temporal dropout mask's digest."""
+    from text_to_video_finetuning_tpu_torch.lora.handler import LoraHandler
+    from text_to_video_finetuning_tpu_torch.parallel import (
+        all_reduce_grads, comm, local_rows, mesh_coords, mesh_from_string,
+        mesh_shape, sequence)
+    from text_to_video_finetuning_tpu_torch.schedulers import ddpm as pddpm
+    from text_to_video_finetuning_tpu_torch.training import train_step
+
+    mesh = _mesh_group(world, args["mesh"])
+    shape = mesh_shape(mesh_from_string(args["mesh"], world), world)
+    dp_index, _, _, sp_index = mesh_coords(rank, shape)
+    assert tuple(mesh.get_coordinate()) == mesh_coords(rank, shape)
+    sp = (sequence.sequence_group(mesh.get_group("sp"))
+          if shape["sp"] > 1 else None)
+    models = {name: _models(spec) for name, spec in args["models"].items()}
+    draw = train_step.draw_step
+    masks = []
+    forward = torch.nn.Dropout.forward
+
+    def recorded_dropout(self, x):
+        y = forward(self, x)
+        if self.training and self.p > 0:
+            masks.append(hashlib.sha256((y == 0).contiguous().view(
+                torch.uint8).numpy().tobytes()).hexdigest())
+        return y
+    torch.nn.Dropout.forward = recorded_dropout
+    out = {}
+    try:
+        for case in args["cases"]:
+            unet, clip, vae = models[case["models"]]
+            unet.set_sequence_parallel(sp)
+            unet.set_gradient_checkpointing(case.get("remat") is not None,
+                                            case.get("remat") or "nothing")
+            handler = LoraHandler(
+                use_unet_lora=True, use_text_lora=bool(case["text_targets"]),
+                unet_replace_modules=case["unet_targets"],
+                text_encoder_replace_modules=case["text_targets"])
+            batch = case["batch"]
+            total = batch["prompt_ids"].shape[0]
+            start, n = local_rows(total, dp_index, shape["dp"])
+            frames = batch["pixel_values"].shape[
+                2 if case["cache_latents"] else 1]
+            local = {}
+
+            def grad_sync(trainable, scalars):
+                local.update({k: t.grad.clone() for k, t in
+                              _grad_keys(trainable).items()
+                              if t.grad is not None})
+                return all_reduce_grads(trainable, extra=scalars)[0]
+            cfg = train_step.TrainStepConfig(
+                unet=unet, text_encoder=clip, vae=vae,
+                cache_latents=case["cache_latents"],
+                scheduler=pddpm.DDPMScheduler(pddpm.SchedulerConfig()),
+                unet_sites=tuple(handler.unet_sites(unet)),
+                text_sites=(tuple(handler.text_encoder_sites(clip))
+                            if case["text_targets"] else ()),
+                eval_train=case.get("eval_train", True),
+                rows=(start, total),
+                frames=(sp_index, shape["sp"]) if sp is not None else None,
+                grad_sync=grad_sync)
+            vae_noise = case.get("vae_noise")
+            given = dict(noise=case["noise"][start:start + n],
+                         timesteps=case["timesteps"][start:start + n],
+                         vae_noise=(None if vae_noise is None
+                                    else vae_noise[start * frames:
+                                                   (start + n) * frames]))
+
+            def draw_given(cfg, trainable, batch, generator, *_, **__):
+                return draw(cfg, trainable, batch, generator, **given)
+            train_step.draw_step = draw_given
+            trainable = {
+                group: {site: {leaf: t.clone().requires_grad_()
+                               for leaf, t in e.items()}
+                        for site, e in sites.items()}
+                for group, sites in case["trainable"].items()}
+            state = train_step.TrainState(step=0, trainable=trainable,
+                                          opt_state=None,
+                                          generator=torch.Generator())
+            make = (train_step.make_split_train_step if case.get("split")
+                    else train_step.make_train_step)
+            torch.manual_seed(case.get("seed", 0) + rank)
+            del masks[:]
+            comm.reset_stats()
+            _, metrics = make(cfg, _KeepGrads())(
+                state, {"pixel_values": batch["pixel_values"][start:start + n],
+                        "prompt_ids": batch["prompt_ids"][start:start + n]})
+            out[case["name"]] = {
+                "grads": {k: t.grad.clone() for k, t in
+                          _grad_keys(trainable).items()},
+                "local": local,
+                "loss": [float(metrics[k]) for k in
+                         ("loss", "loss0", "loss1")],
+                "stats": {k: dict(v) for k, v in comm.STATS.items()},
+                "masks": list(masks)}
+    finally:
+        train_step.draw_step = draw
+        torch.nn.Dropout.forward = forward
+        torch.distributed.destroy_process_group()
+    return out
+
+
 TARGETS = {"engine": _engine, "grads": _grads, "sample": _sample,
            "unet_sp": _unet_sp, "sp_ops": _sp_ops, "tp": _tp,
-           "serve": _serve}
+           "serve": _serve, "mesh_step": _mesh_step,
+           "sp_backward": _sp_backward}
 
 
 def _child(target, rank, world, rendezvous, args_path):

@@ -20,6 +20,7 @@ the port's own CLIP tokenizer (`utils/tokenizer.py`).
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import random
@@ -410,6 +411,21 @@ class ConcatDataset(_Dataset):
                 return d[index]
             index -= n
         raise IndexError
+
+
+def clip_frames(dataset_types, train_data: Dict) -> Dict[str, int]:
+    """{dataset type: the frames of its clips} for each type that
+    `get_train_dataset` builds from `train_data`: its `n_sample_frames`, or
+    the class's default; an image is one frame.  (A folder clip shorter
+    than `n_sample_frames` yields fewer, found only when it is read.)"""
+    out = {}
+    for cls in (VideoJsonDataset, SingleVideoDataset, ImageDataset,
+                VideoFolderDataset):
+        if cls.__getname__() in dataset_types:
+            param = inspect.signature(cls).parameters.get("n_sample_frames")
+            out[cls.__getname__()] = (1 if param is None else int(
+                train_data.get("n_sample_frames", param.default)))
+    return out
 
 
 def get_train_dataset(dataset_types, train_data: Dict, tokenizer):

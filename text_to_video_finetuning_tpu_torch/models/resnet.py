@@ -95,13 +95,12 @@ class TemporalConvLayer(nn.Module):
     with a residual; conv4 is zero-initialised (identity at init).
     Input/output (B*F, C, H, W); `num_frames` unfolds the batch axis.
 
-    With a `sequence_parallel` group (`UNet3DConditionModel.
-    set_sequence_parallel`) the input holds this rank's num_frames / sp
-    frames: the layer runs on every frame at this rank's positions, between
-    the two all-to-alls, with distributed GroupNorms (parallel/
-    sequence.py)."""
-
-    sequence_parallel: Optional[sequence.SequenceGroup] = None
+    With an `sp` group (a `parallel.sequence.SequenceGroup`, which the UNet
+    passes down when `set_sequence_parallel` gave it one) the input holds
+    this rank's num_frames / sp frames: the layer runs on every frame at
+    this rank's positions, between the two all-to-alls, with distributed
+    GroupNorms (parallel/sequence.py).  The group is an argument, so a
+    checkpointed unit's recompute runs as its forward ran."""
 
     def __init__(self, in_dim: int, out_dim: Optional[int] = None):
         super().__init__()
@@ -113,10 +112,10 @@ class TemporalConvLayer(nn.Module):
         nn.init.zeros_(self.conv4[-1].weight)
         nn.init.zeros_(self.conv4[-1].bias)
 
-    def forward(self, hidden_states: torch.Tensor,
-                num_frames: int = 1) -> torch.Tensor:
-        if self.sequence_parallel is not None:
-            return self._forward_sp(hidden_states, num_frames)
+    def forward(self, hidden_states: torch.Tensor, num_frames: int = 1,
+                sp: Optional[sequence.SequenceGroup] = None) -> torch.Tensor:
+        if sp is not None:
+            return self._forward_sp(hidden_states, num_frames, sp)
         bf, channels, height, width = hidden_states.shape
         h = hidden_states.reshape(bf // num_frames, num_frames, channels,
                                   height, width).permute(0, 2, 1, 3, 4)
@@ -130,9 +129,8 @@ class TemporalConvLayer(nn.Module):
         h = h + identity
         return h.permute(0, 2, 1, 3, 4).reshape(bf, channels, height, width)
 
-    def _forward_sp(self, hidden_states: torch.Tensor,
-                    num_frames: int) -> torch.Tensor:
-        sp = self.sequence_parallel
+    def _forward_sp(self, hidden_states: torch.Tensor, num_frames: int,
+                    sp: sequence.SequenceGroup) -> torch.Tensor:
         bf, channels, height, width = hidden_states.shape
         local = num_frames // sp.size
         h = hidden_states.reshape(bf // local, local, channels,

@@ -58,12 +58,11 @@ class Transformer2DModel(nn.Module):
 
 class TransformerTemporalModel(nn.Module):
     """Attention over frames; batch = B*H*W.  The GroupNorm normalises each
-    video over (F, H, W, C/G).  With a `sequence_parallel` group the input
-    holds this rank's num_frames / sp frames: attention runs over every
-    frame at this rank's positions, between the two all-to-alls, with a
-    distributed GroupNorm (parallel/sequence.py)."""
-
-    sequence_parallel: Optional[sequence.SequenceGroup] = None
+    video over (F, H, W, C/G).  With an `sp` group (as
+    `TemporalConvLayer` takes it) the input holds this rank's num_frames /
+    sp frames: attention runs over every frame at this rank's positions,
+    between the two all-to-alls, with a distributed GroupNorm (parallel/
+    sequence.py)."""
 
     def __init__(self, num_attention_heads: int, attention_head_dim: int,
                  in_channels: int, norm_num_groups: int = 32):
@@ -76,10 +75,10 @@ class TransformerTemporalModel(nn.Module):
             double_self_attention=True)])
         self.proj_out = LoraLinear(inner_dim, in_channels)
 
-    def forward(self, hidden_states: torch.Tensor,
-                num_frames: int = 1) -> torch.Tensor:
-        if self.sequence_parallel is not None:
-            return self._forward_sp(hidden_states, num_frames)
+    def forward(self, hidden_states: torch.Tensor, num_frames: int = 1,
+                sp: Optional[sequence.SequenceGroup] = None) -> torch.Tensor:
+        if sp is not None:
+            return self._forward_sp(hidden_states, num_frames, sp)
         bf, channels, height, width = hidden_states.shape
         batch = bf // num_frames
         residual = hidden_states
@@ -104,9 +103,8 @@ class TransformerTemporalModel(nn.Module):
         with tagged(DENSE_TAG):
             return self.proj_out(h)
 
-    def _forward_sp(self, hidden_states: torch.Tensor,
-                    num_frames: int) -> torch.Tensor:
-        sp = self.sequence_parallel
+    def _forward_sp(self, hidden_states: torch.Tensor, num_frames: int,
+                    sp: sequence.SequenceGroup) -> torch.Tensor:
         bf, channels, height, width = hidden_states.shape
         local = num_frames // sp.size
         batch = bf // local

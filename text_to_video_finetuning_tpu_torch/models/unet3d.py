@@ -14,11 +14,14 @@ ResnetBlock2D's GroupNorm -> SiLU through K4/K5 (the state dict does not
 change); `set_gradient_checkpointing` takes a remat policy with an optional
 `+skiplow` suffix (models/remat.py).  `set_sequence_parallel` splits the
 frame axis over an sp process group (parallel/sequence.py): the input then
-holds a rank's frames.
+holds a rank's frames; `sequence_parallel_off` runs forwards on whole clips
+meanwhile (the training step's frame-1 pass, the engine's validation
+sample).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple, Union
 
@@ -32,7 +35,6 @@ from .attention import CrossAttention
 from .embeddings import TimestepEmbedding, get_timestep_embedding
 from .lora_layers import LoraConv2d
 from .remat import parse_remat_policy
-from .resnet import TemporalConvLayer
 from .transformers import TransformerTemporalModel
 from .unet3d_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D,
                             DownBlock3D, UNetMidBlock3DCrossAttn, UpBlock3D)
@@ -172,12 +174,22 @@ class UNet3DConditionModel(nn.Module):
         and returns their prediction: the three modules that mix frames
         (every `TemporalConvLayer` and `TransformerTemporalModel`, which
         `transformer_in` is) exchange positions for frames around their
-        math."""
+        math.  `forward` reads the group once and hands it to them as an
+        argument, so the backward of a forward recomputes its checkpointed
+        units on the layout the forward ran on, whatever the group is by
+        then."""
         self.sequence_parallel = group
-        for module in self.modules():
-            if isinstance(module, (TemporalConvLayer,
-                                   TransformerTemporalModel)):
-                module.sequence_parallel = group
+
+    @contextlib.contextmanager
+    def sequence_parallel_off(self):
+        """The forwards run inside take whole clips (every frame on this
+        rank, no collective); the group is restored on the way out."""
+        group = self.sequence_parallel
+        self.sequence_parallel = None
+        try:
+            yield self
+        finally:
+            self.sequence_parallel = group
 
     def set_gradient_checkpointing(self, enable: bool = True,
                                    remat_policy: str = "nothing"):
@@ -230,19 +242,19 @@ class UNet3DConditionModel(nn.Module):
             batch * local, cfg.in_channels, height, width)
         x = self.conv_in(x)
         if num_frames > 1:
-            x = self.transformer_in(x, num_frames)
+            x = self.transformer_in(x, num_frames, sp)
 
         # 3. down
         res_samples = (x,)
         for block in self.down_blocks:
             if block.has_cross_attention:
-                x, states = block(x, emb, context, num_frames)
+                x, states = block(x, emb, context, num_frames, sp)
             else:
-                x, states = block(x, emb, num_frames)
+                x, states = block(x, emb, num_frames, sp)
             res_samples += states
 
         # 4. mid
-        x = self.mid_block(x, emb, context, num_frames)
+        x = self.mid_block(x, emb, context, num_frames, sp)
 
         # 5. up
         for i, block in enumerate(self.up_blocks):
@@ -253,9 +265,10 @@ class UNet3DConditionModel(nn.Module):
             if not is_final and forward_upsample_size:
                 upsample_size = res_samples[-1].shape[2:]
             if block.has_cross_attention:
-                x = block(x, states, emb, context, upsample_size, num_frames)
+                x = block(x, states, emb, context, upsample_size, num_frames,
+                          sp)
             else:
-                x = block(x, states, emb, upsample_size, num_frames)
+                x = block(x, states, emb, upsample_size, num_frames, sp)
 
         # 6. post-process, (B*F, C, H, W) -> (B, C, F, H, W)
         x = self.conv_out(F.silu(self.conv_norm_out(x)))

@@ -18,7 +18,9 @@ per-unit `nn.remat` (`_maybe_remat`).  The block's `remat_policy` (a
 behaviour, by default) picks what a unit keeps for the backward.
 `fused_groupnorm` runs every resnet's GroupNorm -> SiLU through K4/K5.
 
-Layout: (B*F, C, H, W); skip concat on dim 1.
+Layout: (B*F, C, H, W); skip concat on dim 1.  Under sequence parallelism
+`sp` (the UNet's group) reaches each temporal unit as an argument, so a
+checkpointed unit recomputes on the layout its forward ran on.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.sequence import SequenceGroup
 from .remat import run_unit
 from .resnet import Downsample2D, ResnetBlock2D, TemporalConvLayer, Upsample2D
 from .transformers import Transformer2DModel, TransformerTemporalModel
@@ -83,7 +86,8 @@ class CrossAttnDownBlock3D(_Checkpointed, nn.Module):
             if add_downsample else None)
 
     def forward(self, hidden_states: torch.Tensor, temb: torch.Tensor,
-                encoder_hidden_states: torch.Tensor, num_frames: int = 1
+                encoder_hidden_states: torch.Tensor, num_frames: int = 1,
+                sp: Optional[SequenceGroup] = None
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         gc = self._policy()
         output_states = ()
@@ -93,12 +97,12 @@ class CrossAttnDownBlock3D(_Checkpointed, nn.Module):
             hidden_states = run_unit(resnet, gc, hidden_states, temb)
             if num_frames > 1:
                 hidden_states = run_unit(temp_conv, gc, hidden_states,
-                                         num_frames)
+                                         num_frames, sp)
             hidden_states = run_unit(attn, gc, hidden_states,
                                      encoder_hidden_states)
             if num_frames > 1:
                 hidden_states = run_unit(temp_attn, gc, hidden_states,
-                                         num_frames)
+                                         num_frames, sp)
             output_states += (hidden_states,)
         if self.downsamplers is not None:
             hidden_states = self.downsamplers[0](hidden_states)
@@ -128,7 +132,7 @@ class DownBlock3D(_Checkpointed, nn.Module):
             if add_downsample else None)
 
     def forward(self, hidden_states: torch.Tensor, temb: torch.Tensor,
-                num_frames: int = 1
+                num_frames: int = 1, sp: Optional[SequenceGroup] = None
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         gc = self._policy()
         output_states = ()
@@ -136,7 +140,7 @@ class DownBlock3D(_Checkpointed, nn.Module):
             hidden_states = run_unit(resnet, gc, hidden_states, temb)
             if num_frames > 1:
                 hidden_states = run_unit(temp_conv, gc, hidden_states,
-                                         num_frames)
+                                         num_frames, sp)
             output_states += (hidden_states,)
         if self.downsamplers is not None:
             hidden_states = self.downsamplers[0](hidden_states)
@@ -171,7 +175,8 @@ class UNetMidBlock3DCrossAttn(_Checkpointed, nn.Module):
 
     def forward(self, hidden_states: torch.Tensor, temb: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                num_frames: int = 1) -> torch.Tensor:
+                num_frames: int = 1,
+                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
         gc = self._policy()
         hidden_states = run_unit(self.resnets[0], gc, hidden_states, temb)
         # the reference's non-checkpointed mid path runs the leading
@@ -180,18 +185,18 @@ class UNetMidBlock3DCrossAttn(_Checkpointed, nn.Module):
         # temp_convs[0]"); both are kept, keyed on gradient_checkpointing
         if num_frames > 1 or gc is None:
             hidden_states = run_unit(self.temp_convs[0], gc, hidden_states,
-                                     num_frames)
+                                     num_frames, sp)
         # attn -> temp_attn BEFORE resnet -> temp_conv: the inverse of the
         # down/up blocks
         hidden_states = run_unit(self.attentions[0], gc, hidden_states,
                                  encoder_hidden_states)
         if num_frames > 1:
             hidden_states = run_unit(self.temp_attentions[0], gc,
-                                     hidden_states, num_frames)
+                                     hidden_states, num_frames, sp)
         hidden_states = run_unit(self.resnets[1], gc, hidden_states, temb)
         if num_frames > 1:
             hidden_states = run_unit(self.temp_convs[1], gc, hidden_states,
-                                     num_frames)
+                                     num_frames, sp)
         return hidden_states
 
 
@@ -230,7 +235,8 @@ class CrossAttnUpBlock3D(_Checkpointed, nn.Module):
                 res_hidden_states_tuple: Tuple[torch.Tensor, ...],
                 temb: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 upsample_size: Optional[Sequence[int]] = None,
-                num_frames: int = 1) -> torch.Tensor:
+                num_frames: int = 1,
+                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
         gc = self._policy()
         for resnet, temp_conv, attn, temp_attn in zip(
                 self.resnets, self.temp_convs, self.attentions,
@@ -241,12 +247,12 @@ class CrossAttnUpBlock3D(_Checkpointed, nn.Module):
             hidden_states = run_unit(resnet, gc, hidden_states, temb)
             if num_frames > 1:
                 hidden_states = run_unit(temp_conv, gc, hidden_states,
-                                         num_frames)
+                                         num_frames, sp)
             hidden_states = run_unit(attn, gc, hidden_states,
                                      encoder_hidden_states)
             if num_frames > 1:
                 hidden_states = run_unit(temp_attn, gc, hidden_states,
-                                         num_frames)
+                                         num_frames, sp)
         if self.upsamplers is not None:
             hidden_states = self.upsamplers[0](hidden_states, upsample_size)
         return hidden_states
@@ -280,7 +286,8 @@ class UpBlock3D(_Checkpointed, nn.Module):
                 res_hidden_states_tuple: Tuple[torch.Tensor, ...],
                 temb: torch.Tensor,
                 upsample_size: Optional[Sequence[int]] = None,
-                num_frames: int = 1) -> torch.Tensor:
+                num_frames: int = 1,
+                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
         gc = self._policy()
         for resnet, temp_conv in zip(self.resnets, self.temp_convs):
             skip = res_hidden_states_tuple[-1]
@@ -289,7 +296,7 @@ class UpBlock3D(_Checkpointed, nn.Module):
             hidden_states = run_unit(resnet, gc, hidden_states, temb)
             if num_frames > 1:
                 hidden_states = run_unit(temp_conv, gc, hidden_states,
-                                         num_frames)
+                                         num_frames, sp)
         if self.upsamplers is not None:
             hidden_states = self.upsamplers[0](hidden_states, upsample_size)
         return hidden_states

@@ -1,11 +1,19 @@
-"""The collectives of the inference mesh, timed and counted: the frame-axis
-all-to-alls (parallel/sequence.py), tp's all-reduce (parallel/sharding.py)
-and the all-gathers of the sampler and the decode (pipelines/).
+"""The collectives of the mesh, timed and counted: the frame-axis
+all-to-alls and the GroupNorm statistics' all-gathers (parallel/
+sequence.py), tp's all-reduce (parallel/sharding.py) and the all-gathers of
+the sampler and the decode (pipelines/).
 
-Every call adds its seconds and bytes to `STATS` under its kind
-("all_to_all", "all_reduce", "all_gather"), so a caller reads what one
-request moved (`reset_stats` before, `STATS` after).  The bytes are those
-this rank sends.  On a CUDA tensor the seconds wait for the card first
+`all_to_all` and `all_gather` carry a gradient (`torch.autograd.Function`s
+whose backward is a collective too): the all-to-all's is the reverse
+all-to-all (the exchange is its own adjoint), the all-gather's sums each
+rank's slot over the group by one all-to-all, so that gloo, which may lack
+a reduce-scatter, runs it.  `all_reduce` (tp's inference split) has none.
+
+Every call, forward or backward, adds its seconds and bytes to `STATS`
+under the kind of collective it runs ("all_to_all", "all_reduce",
+"all_gather"; an all-gather's backward counts as an all-to-all), so a
+caller reads what one request or one training step moved (`reset_stats`
+before, `STATS` after).  The bytes are those this rank sends.  On a CUDA tensor the seconds wait for the card first
 (`torch.cuda.synchronize`), so they are the collective's own.  Every
 collective takes CUDA tensors on gloo as on NCCL (gloo stages them through
 the host itself: the card's torch 2.11 ran all-to-all, all-gather and
@@ -47,9 +55,7 @@ def _timed(kind: str, tensor: torch.Tensor):
     entry["bytes"] += tensor.numel() * tensor.element_size()
 
 
-def all_to_all(tensor: torch.Tensor, group) -> torch.Tensor:
-    """`tensor` (n, ...) with n the group's size: returns (n, ...) whose
-    i-th slice is rank i's slice for this rank."""
+def _all_to_all(tensor: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
     tensor = tensor.contiguous()
     out = torch.empty_like(tensor)
@@ -58,15 +64,51 @@ def all_to_all(tensor: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        return _all_to_all(tensor, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # out_r[i] = in_i[r], so d in_r[i] = d out_i[r]: the same exchange
+        return _all_to_all(grad, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group, dim):
+        import torch.distributed as dist
+        tensor = tensor.contiguous()
+        ctx.group, ctx.dim = group, dim
+        parts: List[torch.Tensor] = [
+            torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
+        with _timed("all_gather", tensor):
+            dist.all_gather(parts, tensor, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # rank i's slot of every rank's gradient goes to rank i, which sums
+        # them: the gradient of the whole group's outputs in its input
+        import torch.distributed as dist
+        slots = torch.stack(grad.chunk(dist.get_world_size(ctx.group),
+                                       dim=ctx.dim))
+        return _all_to_all(slots, ctx.group).sum(dim=0), None, None
+
+
+def all_to_all(tensor: torch.Tensor, group) -> torch.Tensor:
+    """`tensor` (n, ...) with n the group's size: returns (n, ...) whose
+    i-th slice is rank i's slice for this rank.  Differentiable."""
+    return _AllToAll.apply(tensor, group)
+
+
 def all_gather(tensor: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The group's tensors concatenated along `dim`, in rank order."""
-    import torch.distributed as dist
-    tensor = tensor.contiguous()
-    n = dist.get_world_size(group)
-    parts: List[torch.Tensor] = [torch.empty_like(tensor) for _ in range(n)]
-    with _timed("all_gather", tensor):
-        dist.all_gather(parts, tensor, group=group)
-    return torch.cat(parts, dim=dim)
+    """The group's tensors concatenated along `dim`, in rank order.
+    Differentiable: the gradient of this rank's input is the sum over the
+    group of its slot of each rank's output gradient."""
+    return _AllGather.apply(tensor, group, dim)
 
 
 def all_reduce(tensor: torch.Tensor, group) -> torch.Tensor:

@@ -9,12 +9,15 @@ under `torchrun` (`python -m torch.distributed.run`); its mesh is a
 JAX mesh's dims ("dp", "fsdp", "tp", "sp") in its row-major order, rank =
 ((dp index x fsdp + fsdp index) x tp + tp index) x sp + sp index
 (`mesh_coords`); size-1 dims stay in the mesh.  Training splits the batch
-rows over "dp", replicates them over "fsdp" and shards the frozen models
-over "fsdp" (parallel/sharding.py); it refuses "tp" and "sp" before
-anything loads (`refuse_unported`, ROADMAP Queue 1 item 5c).  Inference
-and serving take every axis: "dp" splits the CFG pair, "sp" the frames
-(parallel/sequence.py), "tp" the attention heads and feed-forward columns
-and "fsdp" the UNet weights (parallel/sharding.py).
+rows over "dp", replicates them over "fsdp" and "tp" and shards the
+frozen models over "fsdp" (parallel/sharding.py), and splits each clip's
+frames over "sp" (parallel/sequence.py); as in the JAX engine
+(engine.py:605, `use_tp=False`), "tp" does not split the trained step, so
+a tp group's ranks run it alike.  `check_frames` refuses, before anything
+loads, a clip that "sp" does not divide.  Inference and serving take
+every axis: "dp" splits the CFG pair, "sp" the frames, "tp" the attention
+heads and feed-forward columns and "fsdp" the UNet weights
+(parallel/sharding.py).
 
 `mesh_from_string` parses the JAX package's CLI syntax with the same
 accepted specs and errors; `make_mesh` checks the sizes against the world
@@ -35,9 +38,6 @@ import torch
 
 logger = logging.getLogger("t2v_torch")
 
-NOT_PORTED = "ROADMAP Queue 1 item 5c"
-
-
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     dp: int = -1     # -1: all remaining ranks
@@ -46,15 +46,16 @@ class MeshConfig:
     sp: int = 1
 
 
-def refuse_unported(config: MeshConfig):
-    """Training's tp and sp (tensor and frame-axis parallelism of the
-    trained step) are not ported; inference and serving take them."""
-    axes = {a: getattr(config, a) for a in ("tp", "sp")
-            if getattr(config, a) > 1}
-    if axes:
-        raise NotImplementedError(
-            f"training on the {'/'.join(axes)} mesh axes ({axes}) is not "
-            f"ported yet: {NOT_PORTED}")
+def check_frames(config: MeshConfig, frames: Dict[str, int]):
+    """Refuse a clip length that the sp axis does not split evenly:
+    `frames` maps each dataset to the frames of its clips.  (The JAX
+    engine fails later, when the batch is placed on the mesh.)"""
+    for name, n in frames.items():
+        if n % config.sp:
+            raise ValueError(
+                f"{name}: n_sample_frames={n} is not divisible by "
+                f"mesh_sp={config.sp}: every sp rank takes an equal share "
+                "of each clip's frames")
 
 
 def mesh_shape(config: MeshConfig, n: int) -> Dict[str, int]:
@@ -108,8 +109,7 @@ def make_mesh(config: MeshConfig = MeshConfig(),
               device_type: Optional[str] = None):
     """A DeviceMesh over the process group's world with dims ("dp",
     "fsdp", "tp", "sp"); the process group must be up
-    (`init_distributed`).  Training refuses tp and sp itself
-    (`refuse_unported`)."""
+    (`init_distributed`)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 

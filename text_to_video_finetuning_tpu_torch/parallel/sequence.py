@@ -3,8 +3,9 @@ modules that mix frames: `TemporalConvLayer`, `TransformerTemporalModel`
 and the UNet's `transformer_in` (one of the latter).
 
 The JAX package has no module for this: it marks the frame axis of the
-sampler's UNet input as sharded over "sp" (pipelines/text_to_video.py:
-49-56, 121-136) and XLA inserts the collectives.  The port writes them:
+UNet input as sharded over "sp" (the sampler's, pipelines/
+text_to_video.py:49-56, 121-136; the training batch's, training/
+engine.py:609-611) and XLA inserts the collectives.  The port writes them:
 every spatial module folds frames into the batch, (B*F, C, H, W), and runs
 on a rank's own frames unchanged; a module that mixes frames
 
@@ -24,13 +25,18 @@ on a rank's own frames unchanged; a module that mixes frames
 4. goes back to its frames by the reverse all-to-all
    (`positions_to_frames`).
 
-Forward only: the collectives are plain functions (the backward of an
-all-to-all is the reverse all-to-all, ROADMAP Queue 1 item 5c).
+All of it trains: the all-to-all's backward is the reverse all-to-all and
+the all-gather's sums each rank's slot over the group (parallel/comm.py),
+so the backward of `group_norm` carries every rank's share of the merged
+statistics' gradient back to the rank whose positions made them.  A padded
+position only ever meets itself (both steps of 2 act per position) and is
+dropped at the end, so it takes no gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -94,17 +100,18 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm, sp: SequenceGroup,
     """`norm` (an `nn.GroupNorm`) over a tensor whose last axis, positions,
     is split over the sp group: x (B, C, ...positions last), of which the
     first `valid` positions are real.  Statistics in fp32, merged over the
-    group; the output in x's dtype."""
+    group; the output in x's dtype.  Differentiable, every rank's
+    positions in every rank's statistics."""
     b, c = x.shape[:2]
     g = norm.num_groups
     xf = x.float()
-    part = xf[..., :valid].reshape(b, g, -1)
-    count = torch.full((b, g), float(part.shape[-1]), device=x.device)
-    if part.shape[-1]:
-        mean = part.mean(dim=-1)
-        m2 = (part - mean[..., None]).square().sum(dim=-1)
-    else:
-        mean = m2 = torch.zeros((b, g), device=x.device)
+    # the same operators on every rank, one that holds no real position
+    # too: the ranks' backwards then run their collectives in one order
+    n = (c // g) * math.prod(xf.shape[2:-1]) * valid
+    part = xf[..., :valid].reshape(b, g, n)
+    count = torch.full((b, g), float(n), device=x.device)
+    mean = part.sum(dim=-1) / max(n, 1)
+    m2 = (part - mean[..., None]).square().sum(dim=-1)
     stats = all_gather(torch.stack([count, mean, m2])[None], sp.group)
     counts, means, m2s = stats.unbind(dim=1)     # each (sp, B, G)
     total = counts.sum(dim=0)

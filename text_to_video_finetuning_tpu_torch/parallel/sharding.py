@@ -2,7 +2,8 @@
 sharding.py, as the JAX engine uses it, training/engine.py:581-607): the
 trainable state replicated, the frozen UNet and CLIP sharded over "fsdp",
 the VAE replicated, the batch rows split over "dp" and replicated over
-"fsdp" (JAX `batch_sharding`, sharding.py:74-86).
+"fsdp" and "tp" (JAX `batch_sharding`, sharding.py:74-86), each clip's
+frames split over "sp" (the step's `frames`, training/train_step.py).
 
 * `shard_frozen`: FSDP2 `fully_shard` on each UNet down / mid / up block
   and each CLIP encoder layer, then on the root, over the mesh's "fsdp"
@@ -15,7 +16,7 @@ the VAE replicated, the batch rows split over "dp" and replicated over
 * `all_reduce_grads`: one mean over the world of every trainable gradient,
   in fp32 buckets, with a few scalars (the losses) riding in the last one.
 * `local_rows`: a dp index's slice of the global batch, which every rank
-  of that dp index's fsdp group holds.
+  of that dp index holds.
 * `frozen_bytes`: what a rank holds of the frozen models.
 * `split_tp`: the JAX tp rules (`_TP_COL`, `_TP_COL_PARENT`, `_TP_ROW`,
   sharding.py:28-30) as an explicit Megatron split of the UNet's attention
@@ -40,8 +41,9 @@ BUCKET_ELEMENTS = 16 * 2**20
 
 def local_rows(global_batch: int, dp_index: int, dp: int) -> Tuple[int, int]:
     """(start, count) of the rows of dp index `dp_index` in a global batch
-    split evenly over the `dp` extent; the ranks of one fsdp group share
-    them.  Refuses a batch that does not split over dp."""
+    split evenly over the `dp` extent; the ranks of one dp index (its
+    fsdp, tp and sp groups) share them.  Refuses a batch that does not
+    split over dp."""
     if global_batch % dp:
         raise ValueError(
             f"global batch size {global_batch} is not divisible by dp={dp}:"
@@ -107,10 +109,23 @@ def all_reduce_grads(trainable, group=None,
                      extra: Optional[torch.Tensor] = None
                      ) -> Tuple[Optional[torch.Tensor], int]:
     """Replace the `.grad` of every tensor of `trainable` (a tree of dicts)
-    by its mean over the ranks of `group` (the world by default).  The
-    ranks of one fsdp group hold the same rows, so over a (dp, fsdp) world
-    the world mean is the mean over dp, the global batch's gradient.  The
-    gradients are packed into fp32 buckets of at most BUCKET_ELEMENTS,
+    by its mean over the ranks of `group` (the world by default).  Over a
+    (dp, fsdp, tp, sp) world that mean is the global batch's gradient:
+
+    * the ranks of one fsdp or tp group hold the same rows and run the same
+      step (tp does not split training), so their gradients are equal and
+      the world mean is the mean over dp and sp;
+    * the ranks of one sp group hold a share of the clip each, and rank r's
+      backward starts from its own loss L_r; the collectives' backwards
+      (parallel/comm.py) carry to rank r every rank's gradient in rank r's
+      activations, so the parameters' uses on rank r receive
+      d(sum_s L_s)/d theta_r, and the sum of those over r is
+      d(sum_s L_s)/d theta.  The mean over the sp group is the gradient of
+      (1/sp) sum_s L_s, the one-device loss (training/train_step.py);
+    * the mean over dp of each dp index's one-device gradient is the
+      global batch's.
+
+    The gradients are packed into fp32 buckets of at most BUCKET_ELEMENTS,
     each all-reduced (sum) once and divided by the world size.  A tensor
     without a gradient counts as zero.  `extra`, a 1-D tensor of scalars,
     rides in the last bucket; returns (its mean, the bytes all-reduced)."""

@@ -35,38 +35,48 @@ the step in flight, writes a checkpoint and returns.
 `text_encoder_gradient_checkpointing` changes memory only; the port's CLIP
 runs without checkpointing.
 
-Several ranks (the JAX engine with `mesh_dp` / `mesh_fsdp` above 1): under
-`torchrun` each rank joins the process group (`parallel/mesh.py::
-init_distributed`: NCCL on the card, gloo on the CPU, unless `backend`
-names one; `device="cuda"` gives rank r `cuda:{LOCAL_RANK}`).  The global
-batch is `train_batch_size` x dp: a rank takes the `train_batch_size` rows
-of its dp index, which the ranks of its fsdp group share (JAX shards the
-batch over "dp" and replicates it over "fsdp", parallel/sharding.py::
+Several ranks (the JAX engine with `mesh_dp`, `mesh_fsdp`, `mesh_tp` or
+`mesh_sp` above 1): under `torchrun` each rank joins the process group
+(`parallel/mesh.py::init_distributed`: NCCL on the card, gloo on the CPU,
+unless `backend` names one; `device="cuda"` gives rank r
+`cuda:{LOCAL_RANK}`).  The global batch is `train_batch_size` x dp: a
+rank takes the `train_batch_size` rows of its dp index, whole clips,
+which the ranks of its fsdp and tp groups share (JAX shards the batch
+over "dp" and replicates it over the rest, parallel/sharding.py::
 batch_sharding); the loader and a pre-built latent cache are sharded by dp
 index, a fresh cache is encoded by stride into
-`cached_latents/host{dp index}` by the group's first rank and padded to a
-common count (JAX :115-188).  Every rank draws the whole global batch's
-noise, timesteps and posterior noise from the same step generator and
-keeps its rows, so a dp run follows a one-process run at the same global
-batch to float rounding; the UNet's own dropout draws from the default
-generator, seeded `seed + dp index`, so one fsdp group draws the same
-masks.  After the backward, the gradients and the losses are averaged
-over the world (`parallel/sharding.py::all_reduce_grads`; an fsdp group's
-ranks hold the same rows, so that is the mean over dp) before the
+`cached_latents/host{dp index}` by the dp index's first rank (fsdp, tp
+and sp index 0) and padded to a common count (JAX :115-188).  Every rank
+draws the whole global batch's noise, timesteps and posterior noise, for
+whole clips, from the same step generator and keeps its rows, so a dp run
+follows a one-process run at the same global batch to float rounding.
+`mesh_sp` splits each clip's frames over the sp group
+(`UNet3DConditionModel.set_sequence_parallel`): a rank runs pass 0 on its
+share of the frames (the raw path encodes only those) and the frame-1
+pass whole (training/train_step.py; the check before the run: every
+dataset's `n_sample_frames` divisible by `mesh_sp`, where JAX fails when
+it places the batch).  `mesh_tp` replicates the trained step over the tp
+group, as the JAX engine does (engine.py:605, `use_tp=False`).  The
+UNet's own dropout draws from the default generator, seeded `seed + dp
+index x sp + sp index`, so one fsdp or tp group draws the same masks and
+the ranks of an sp group, which hold other positions, draw others.  After
+the backward, the gradients and the losses are averaged over the world
+(`parallel/sharding.py::all_reduce_grads`: the mean over dp and sp of
+equal fsdp and tp copies, the global batch's gradient) before the
 optimizer's non-finite guard, which so decides for all ranks, as in JAX
 where the gradient is global.  `mesh_fsdp` shards the frozen
 UNet and CLIP over the ranks (`shard_frozen`); rank 0 keeps a host copy of
 their weights for its saves, as the JAX engine keeps its host trees.
 Rank 0 alone writes the config, the pipelines, the LoRA files, the train
 state (with every rank's default generator) and tensorboard; every rank
-waits at a barrier after each save.  The SIGTERM decision rides in the same all-reduce, so every
-rank stops at the same step.  `mesh_tp` and `mesh_sp` above 1 raise.
+waits at a barrier after each save.  The SIGTERM decision rides in the
+same all-reduce, so every rank stops at the same step.  Each rank samples
+the validation clip whole, the sp split off.
 
 `validation_data.compute_clip_score` scores each sample against its
 prompt with the CLIP model at `clip_model_path` (`eval/clip_score.py`,
 built at the first sample on the engine's device, by rank 0 alone) and
-logs `clip_score=... at step N`.  Mesh axes not ported yet raise
-`NotImplementedError` naming their ROADMAP item, before anything loads.
+logs `clip_score=... at step N`.
 """
 
 from __future__ import annotations
@@ -86,15 +96,16 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig, save_config, train_config_from_dict
-from ..data import (CachedDataset, ConcatDataset, DataLoader,
+from ..data import (CachedDataset, ConcatDataset, DataLoader, clip_frames,
                     extend_datasets, get_train_dataset)
 from ..data import native as dnative
 from ..data.video import export_to_video
 from ..lora.handler import LoraHandler
 from ..lora.overlay import collapse_lora
-from ..parallel import (MeshConfig, all_reduce_grads, frozen_bytes,
-                        init_distributed, local_rows, make_mesh, mesh_coords,
-                        mesh_shape, refuse_unported, shard_frozen)
+from ..parallel import (MeshConfig, all_reduce_grads, check_frames, comm,
+                        frozen_bytes, init_distributed, local_rows,
+                        make_mesh, mesh_coords, mesh_shape, shard_frozen)
+from ..parallel.sequence import sequence_group
 from ..pipelines.text_to_video import TextToVideoSDPipeline
 from ..schedulers.ddpm import DDPMScheduler
 from ..utils import checkpoint as ckpt
@@ -115,9 +126,9 @@ _BACKENDS = {"auto": "auto", "xla": "plain", "pallas": "flash"}
 
 
 def check_supported(cfg: TrainConfig):
-    """Refuse, before anything is loaded or the run directory exists, the
-    mesh axes the port does not run yet (naming their ROADMAP Queue 1
-    item) and the validation options that could not run at step N."""
+    """Refuse, before anything is loaded or the run directory exists, a
+    clip that `mesh_sp` does not split evenly and the validation options
+    that could not run at step N."""
     vd = cfg.validation_data or {}
     if vd.get("compute_clip_score"):
         # the scorer itself is built at the first sample (JAX :658-674)
@@ -132,7 +143,7 @@ def check_supported(cfg: TrainConfig):
                 f"validation_data.clip_model_path={clip_dir!r} is not a "
                 "transformers CLIPModel dir (no config.json); download "
                 "one locally first (README: the port's eval and tooling)")
-    refuse_unported(mesh_config(cfg))
+    check_frames(mesh_config(cfg), dataset_frames(cfg))
     if (cfg.validation_data or {}).get("sample_preview"):
         try:
             import cv2  # noqa: F401  (the sample's mp4 writer)
@@ -141,6 +152,19 @@ def check_supported(cfg: TrainConfig):
                 "validation_data.sample_preview writes mp4 samples with "
                 "cv2, which is not installed; set sample_preview: False"
             ) from e
+
+
+def dataset_frames(cfg: TrainConfig) -> Dict[str, int]:
+    """{dataset: its clips' frames} over `train_data` and each
+    `extra_train_data` entry (`data/datasets.py::clip_frames`)."""
+    out = {f"train_data ({name})": n for name, n in clip_frames(
+        cfg.dataset_types, cfg.train_data or {}).items()}
+    for i, ds in enumerate(cfg.extra_train_data or []):
+        out.update({f"extra_train_data[{i}] ({name})": n
+                    for name, n in clip_frames(
+                        ds.get("dataset_types") or [],
+                        ds.get("train_data") or {}).items()})
+    return out
 
 
 def mesh_config(cfg: TrainConfig) -> MeshConfig:
@@ -233,8 +257,9 @@ def handle_cache_latents(cfg: TrainConfig, output_dir: str, loader,
     a fresh cache is local to each: dp index d encodes items d, d + dp, ...
     into `cached_latents/host{d}` and repeats its last item up to
     ceil(len / dp), so every rank reads the same number of batches of
-    `global_batch / dp` rows.  Only the rank with `write` (the first of its
-    fsdp group) writes; `barrier`, when given, runs before anyone reads."""
+    `global_batch / dp` rows.  Only the rank with `write` (the dp index's
+    first: fsdp, tp and sp index 0) writes; `barrier`, when given, runs
+    before anyone reads."""
     if not cfg.cache_latents:
         return None
     global_batch = global_batch or cfg.train_batch_size
@@ -390,8 +415,11 @@ class RunRecord:
     * across ranks: `rank`, `world` and the process group's `backend`
       (None without one); `syncs`, each step's gradient
       all-reduce (seconds, bytes), timed from a device synchronize before
-      it to the read of its result; `frozen_bytes`, the bytes of frozen
-      parameters this rank holds (its shards under `mesh_fsdp`).
+      it to the read of its result; `comm`, each step's sequence-parallel
+      collectives, forward and backward, as {"all_to_all", "all_gather"}
+      of {"calls", "seconds", "bytes"} (parallel/comm.py, zeros without
+      `mesh_sp`); `frozen_bytes`, the bytes of frozen parameters this rank
+      holds (its shards under `mesh_fsdp`).
 
     Without a record the run snapshots and reads back nothing more."""
     steps: List[Tuple[float, float]] = dataclasses.field(
@@ -405,6 +433,8 @@ class RunRecord:
     world: int = 1
     backend: Optional[str] = None
     syncs: List[Tuple[float, int]] = dataclasses.field(default_factory=list)
+    comm: List[Dict[str, Dict[str, float]]] = dataclasses.field(
+        default_factory=list)
     frozen_bytes: int = 0
 
     def timed(self, what: str, fn, *args, **kwargs):
@@ -469,16 +499,18 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
     mark(None)
     # the sizes first: a mesh that does not fit the world fails before the
     # run directory.  A rank takes its dp index's rows of the global batch
-    # and shares them with its fsdp group
+    # and shares them with its fsdp and tp groups; its sp index names its
+    # share of each clip's frames
     shape = mesh_shape(mesh_config(cfg), world)
-    dp = shape["dp"]
-    dp_index, fsdp_index, _, _ = mesh_coords(rank, shape)
+    dp, sp = shape["dp"], shape["sp"]
+    dp_index, fsdp_index, tp_index, sp_index = mesh_coords(rank, shape)
     global_batch = cfg.train_batch_size * dp
     row_start, local_batch = local_rows(global_batch, dp_index, dp)
     seed = cfg.seed if cfg.seed is not None else 0
     # the device's default generator feeds the UNet's dropout: one stream
-    # per dp index, the same masks across an fsdp group
-    torch.manual_seed(seed + dp_index)
+    # per (dp, sp) index, the same masks across an fsdp or tp group; an sp
+    # group's ranks drop out at other positions
+    torch.manual_seed(seed + dp_index * sp + sp_index)
 
     output_dir = create_output_folders(cfg.output_dir, cfg)
     writer = _open_writer(cfg, output_dir) if is_main else None
@@ -551,10 +583,14 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
     n_frozen = sum(p.numel() for m in (unet, text_encoder, vae)
                    for p in m.parameters() if not p.requires_grad)
     frozen_host = None
-    if distributed and shape["fsdp"] > 1:
+    mesh = (make_mesh(mesh_config(cfg), device.type)
+            if distributed and (shape["fsdp"] > 1 or sp > 1) else None)
+    if sp > 1:
+        # the data's frame axis over sp (JAX :609-611)
+        unet.set_sequence_parallel(sequence_group(mesh.get_group("sp")))
+    if shape["fsdp"] > 1:
         # the placement the JAX engine uses (:581-607): the trainable state
         # and the VAE replicated, the frozen UNet and CLIP over fsdp
-        mesh = make_mesh(mesh_config(cfg), device.type)
         if is_main:
             # the frozen weights never change: rank 0 keeps them on the
             # host for its saves, as the JAX engine keeps its host trees,
@@ -622,7 +658,8 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
                                   bucket_batching=use_bucketing)
     cached = handle_cache_latents(
         cfg, output_dir, train_dataloader, vae, device, dp_index, dp,
-        global_batch, write=fsdp_index == 0, barrier=barrier)
+        global_batch, write=fsdp_index == tp_index == sp_index == 0,
+        barrier=barrier)
     if cached is not None:
         train_dataloader = cached
 
@@ -663,6 +700,7 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
         ema_decay=(cfg.ema_decay if cfg.use_ema else 0.0),
         ema_every=cfg.gradient_accumulation_steps,
         rows=(row_start, global_batch) if distributed else None,
+        frames=(sp_index, sp) if sp > 1 else None,
         grad_sync=grad_sync if distributed else None)
     # split_two_pass: the two passes one after the other, only where a
     # second pass runs (JAX engine.py:613-622)
@@ -757,8 +795,8 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
         use_ema) or the live weights, both LoRAs through the branch layers
         (equal to their collapse, JAX engine.py:855-866), written as an mp4
         beside the run by rank 0, which alone scores it when
-        `compute_clip_score` is set.  Every rank samples: a sharded model
-        runs only on all of them."""
+        `compute_clip_score` is set.  Every rank samples, the clip whole
+        (the sp split off): a sharded model runs only on all of them."""
         use_ema = cfg.use_ema and state.ema is not None
         backup = train_state_io.to_host(state.trainable) if use_ema else None
         vd = cfg.validation_data
@@ -774,12 +812,13 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
                 unet=unet, vae=vae, text_encoder=text_encoder,
                 tokenizer=tokenizer, scheduler_config=scheduler_config,
                 device=device)
-            frames = pipe(prompt, width=vd.get("width", 256),
-                          height=vd.get("height", 256),
-                          num_frames=vd.get("num_frames", 16),
-                          num_inference_steps=vd.get("num_inference_steps",
-                                                     25),
-                          guidance_scale=vd.get("guidance_scale", 9.0))
+            with unet.sequence_parallel_off():
+                frames = pipe(prompt, width=vd.get("width", 256),
+                              height=vd.get("height", 256),
+                              num_frames=vd.get("num_frames", 16),
+                              num_inference_steps=vd.get(
+                                  "num_inference_steps", 25),
+                              guidance_scale=vd.get("guidance_scale", 9.0))
             attach_branches(step_cfg, {})
             if use_ema:
                 for dst, val in zip(leaves(state.trainable),
@@ -867,6 +906,7 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
                 if cfg.profile_steps and run_steps == 1:
                     profiler.start()
                 mark(f"after step {run_steps}" if run_steps else "set-up")
+                comm.reset_stats()
                 t0 = time.perf_counter()
                 state, metrics = train_step(state, device_batch)
                 # window-mean train_loss (reference train.py:855-890), kept
@@ -883,6 +923,8 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
                     record.steps.append((time.perf_counter() - t0,
                                          float(metrics["loss"])))
                     record.grad_norms.append(float(metrics["grad_norm"]))
+                    record.comm.append({k: dict(comm.STATS[k]) for k in
+                                        ("all_to_all", "all_gather")})
                 mark(f"step {run_steps}")
 
                 # global_step counts optimizer updates, one per

@@ -45,12 +45,26 @@ have no batch axis and are the same on every rank.  `grad_sync` runs after
 the backward (both passes of the split step) and before the optimizer
 and its non-finite guard: the engine's all-reduce of the gradients and the
 losses (parallel/sharding.py::all_reduce_grads).
+
+Under sequence parallelism (the UNet split over an sp group, the JAX
+engine's frame axis sharded over "sp", engine.py:609-611),
+`TrainStepConfig.frames` = (share, shares) names this rank's share of each
+clip.  The batch holds whole clips; the noise, offset noise and posterior
+noise are drawn for them, as one device draws them, and the rank keeps its
+frames (the raw path encodes only those).  Pass 0 runs on the share, its
+loss the mean over the share's frames; the frame-1 pass runs on the
+clip's frame 1, on every rank, with the split off (`UNet3DConditionModel.
+sequence_parallel_off`).  The world mean of the losses, (1/sp) sum_r
+(L0_r + L1) = mean L0 + L1, is one device's, and so is that of the
+gradients (parallel/sharding.py::all_reduce_grads).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 from torch import nn
@@ -102,6 +116,10 @@ class TrainStepConfig:
     # (first row, global batch): the draws are taken for the global batch
     # and this rank keeps its rows; None: the batch is the whole of it
     rows: Optional[Tuple[int, int]] = None
+    # (share, shares): the batch holds whole clips, and this rank runs
+    # pass 0 on the share-th of `shares` equal runs of each clip's frames
+    # (the UNet split over an sp group of `shares` ranks); None: the clip
+    frames: Optional[Tuple[int, int]] = None
     # grad_sync(trainable, scalars) -> scalars: after the backward, before
     # the optimizer; averages the gradients and the scalars (the losses)
     # over the ranks
@@ -115,13 +133,17 @@ def _rows(rows: Optional[Tuple[int, int]], n: int) -> Tuple[int, int]:
 
 def sample_noise(generator: torch.Generator, latents: torch.Tensor,
                  noise_strength: float, use_offset_noise: bool,
-                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                 rows: Optional[Tuple[int, int]] = None,
+                 video_length: Optional[int] = None) -> torch.Tensor:
     """Gaussian noise of the latents' shape and dtype, plus per-(video,
     channel, frame) offset noise when asked; with `rows` = (start, global)
-    both are drawn for the global batch and rows start.. are kept."""
+    both are drawn for the global batch and rows start.. are kept.  With
+    `video_length` both are drawn for clips of that many frames (`latents`
+    may hold some of them)."""
     b, c, f = latents.shape[:3]
+    f = video_length or f
     start, total = _rows(rows, b)
-    noise = torch.randn((total,) + tuple(latents.shape[1:]),
+    noise = torch.randn((total, c, f) + tuple(latents.shape[3:]),
                         generator=generator,
                         device=latents.device).to(latents.dtype)
     if use_offset_noise:
@@ -135,25 +157,34 @@ def sample_noise(generator: torch.Generator, latents: torch.Tensor,
 def tensor_to_vae_latent(cfg: TrainStepConfig, pixel_values: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
                          noise: Optional[torch.Tensor] = None,
-                         rows: Optional[Tuple[int, int]] = None
+                         rows: Optional[Tuple[int, int]] = None,
+                         frame_ids: Optional[Sequence[int]] = None
                          ) -> torch.Tensor:
     """reference train.py:339-347 (JAX train_step.py:175-185): pixel frames
     (B, F, C, H, W) folded to one batch of B*F images, encoded as a sample
     of the posterior, back to (B, 4, F, h, w), times `scaling_factor`.  The
     posterior noise, (B*F, 4, h, w), is drawn fp32 from `generator` and cast
     to the VAE's dtype, or given as `noise`; with `rows` it is drawn for
-    the global batch and this rank's rows are kept."""
+    the global batch and this rank's rows are kept.  With `frame_ids` only
+    those frames of each clip are encoded, with their share of the noise
+    drawn for whole clips."""
     b, f = pixel_values.shape[:2]
-    px = pixel_values.reshape((b * f,) + tuple(pixel_values.shape[2:]))
+    if frame_ids is not None:
+        pixel_values = pixel_values[:, list(frame_ids)]
+    n = pixel_values.shape[1]
+    px = pixel_values.reshape((b * n,) + tuple(pixel_values.shape[2:]))
     mean, logvar = cfg.vae.moments(px)
     if noise is None:
         start, total = _rows(rows, b)
         noise = torch.randn((total * f,) + tuple(mean.shape[1:]),
                             generator=generator, device=mean.device,
                             dtype=torch.float32)[start * f:(start + b) * f]
-    latents = mean + torch.exp(0.5 * logvar) * noise.to(mean.device,
-                                                        mean.dtype)
-    latents = latents.reshape((b, f) + tuple(latents.shape[1:]))
+    if frame_ids is not None:
+        noise = noise.reshape((b, f) + tuple(noise.shape[1:]))[
+            :, list(frame_ids)]
+    latents = mean + torch.exp(0.5 * logvar) * noise.reshape(
+        mean.shape).to(mean.device, mean.dtype)
+    latents = latents.reshape((b, n) + tuple(latents.shape[1:]))
     return latents.permute(0, 2, 1, 3, 4) * cfg.scaling_factor
 
 
@@ -169,6 +200,37 @@ class StepDraws:
     latents: torch.Tensor
     noise: torch.Tensor
     timesteps: torch.Tensor
+    # the clip's frame count, and where this rank's frames sit among the
+    # latents' under `TrainStepConfig.frames`: pass 0 runs on the first
+    # `share` of them and the frame-1 pass on the `frame1`-th; the
+    # defaults are the whole clip
+    video_length: Optional[int] = None
+    share: Optional[int] = None
+    frame1: int = 1
+
+
+def frame_share(frames: Optional[Tuple[int, int]], video_length: int,
+                frame_one: bool) -> Tuple[Optional[List[int]],
+                                          Optional[int], int]:
+    """(the clip's frames this rank keeps, how many of them pass 0 runs
+    on, frame 1's place among them) for `TrainStepConfig.frames`: the
+    share's frames, then frame 1 when `frame_one` (the frame-1 pass runs)
+    and the share lacks it; (None, None, 1), the whole clip, without a
+    split."""
+    if frames is None:
+        return None, None, 1
+    share, shares = frames
+    if video_length % shares:
+        raise ValueError(f"{video_length} frames do not split into "
+                         f"{shares} equal shares (mesh_sp={shares})")
+    n = video_length // shares
+    ids = list(range(share * n, (share + 1) * n))
+    frame1 = 1 - share * n
+    if not 0 <= frame1 < n:
+        frame1 = n
+        if frame_one:
+            ids.append(1)
+    return ids, n, frame1
 
 
 def draw_step(cfg: TrainStepConfig, trainable, batch,
@@ -187,14 +249,21 @@ def draw_step(cfg: TrainStepConfig, trainable, batch,
         masks[group] = (dropout_masks(trainable[group], sites, rate,
                                       generator)
                         if group in trainable and train_mode else None)
+    px = batch["pixel_values"]
+    video_length = px.shape[2] if cfg.cache_latents else px.shape[1]
+    ids, share, frame1 = frame_share(
+        cfg.frames, video_length,
+        text_is_trainable(trainable) and video_length > 1)
     if cfg.cache_latents:
-        latents = batch["pixel_values"]          # cached latents
+        latents = px if ids is None else px[:, :, ids]   # cached latents
     else:
-        latents = tensor_to_vae_latent(cfg, batch["pixel_values"],
-                                       generator, vae_noise, cfg.rows)
+        latents = tensor_to_vae_latent(cfg, px, generator, vae_noise,
+                                       cfg.rows, ids)
     if noise is None:
         noise = sample_noise(generator, latents, cfg.offset_noise_strength,
-                             cfg.use_offset_noise, cfg.rows)
+                             cfg.use_offset_noise, cfg.rows, video_length)
+    if ids is not None:
+        noise = noise[:, :, ids]
     if timesteps is None:
         start, total = _rows(cfg.rows, latents.shape[0])
         timesteps = torch.randint(
@@ -202,7 +271,7 @@ def draw_step(cfg: TrainStepConfig, trainable, batch,
             generator=generator,
             device=latents.device)[start:start + latents.shape[0]]
     return StepDraws(masks["unet_lora"], masks["text_lora"], latents, noise,
-                     timesteps)
+                     timesteps, video_length, share, frame1)
 
 
 def attach_branches(cfg: TrainStepConfig, trainable,
@@ -248,7 +317,8 @@ def make_loss_fn(cfg: TrainStepConfig, pass_sel: Optional[int] = None):
         attach_branches(cfg, trainable, draws)
         latents, noise, timesteps = draws.latents, draws.noise, \
             draws.timesteps
-        video_length = latents.shape[2]
+        video_length = draws.video_length or latents.shape[2]
+        share = slice(0, draws.share)
         noisy_latents = cfg.scheduler.add_noise(latents, noise, timesteps)
         target = cfg.scheduler.training_target(latents, noise, timesteps)
         token_ids = batch["prompt_ids"]
@@ -273,17 +343,23 @@ def make_loss_fn(cfg: TrainStepConfig, pass_sel: Optional[int] = None):
         if runs0:
             hs0 = (hidden_states.detach() if video_length > 1
                    else hidden_states)
-            raw_loss0 = loss0 = unet_fwd(noisy_latents, target, hs0)
+            raw_loss0 = loss0 = unet_fwd(noisy_latents[:, :, share],
+                                         target[:, :, share], hs0)
             if video_length > 1 and not text_trainable and not cfg.two_pass:
                 # skipped redundant pass: x2 keeps the expected gradient
                 loss0 = loss0 * 2.0
         if runs1:
             if text_trainable:
-                # frame 1 only, with the trainable text
-                loss1 = unet_fwd(noisy_latents[:, :, 1:2],
-                                 target[:, :, 1:2], hidden_states)
+                # frame 1 only, with the trainable text; on every rank of
+                # an sp group, whole
+                one = slice(draws.frame1, draws.frame1 + 1)
+                with (cfg.unet.sequence_parallel_off() if cfg.frames
+                      else contextlib.nullcontext()):
+                    loss1 = unet_fwd(noisy_latents[:, :, one],
+                                     target[:, :, one], hidden_states)
             else:
-                loss1 = unet_fwd(noisy_latents, target, hidden_states)
+                loss1 = unet_fwd(noisy_latents[:, :, share],
+                                 target[:, :, share], hidden_states)
         loss = loss0 + loss1
         return loss, {"loss0": raw_loss0.detach(), "loss1": loss1.detach()}
 
