@@ -3475,7 +3475,7 @@ class SamplingRecord:
             torch.cuda.synchronize()
             cur.update(seconds=time.perf_counter() - t0,
                        peak=torch.cuda.max_memory_allocated(),
-                       comm={k: dict(v) for k, v in comm.STATS.items()})
+                       comm=comm.stats())
             if rec.replay and rec.replay[1] == len(rec.requests) - 1:
                 rec.paused = True           # the replay records nothing
                 try:

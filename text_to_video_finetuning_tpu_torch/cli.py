@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import logging
 import os
 import platform
 import re
@@ -402,6 +403,7 @@ def serve_main(argv: Optional[Sequence[str]] = None):
     every rank."""
     parser = build_serve_parser()
     args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
     if args.max_queue < 0:
         # a negative bound would 503 every request
         parser.error(f"--max-queue must be >= 0, got {args.max_queue}")

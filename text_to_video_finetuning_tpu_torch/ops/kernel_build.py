@@ -21,6 +21,8 @@ import subprocess
 import threading
 from typing import Dict
 
+from ..utils.profiling import span
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -78,9 +80,10 @@ def ptxas_report(lib: str) -> Dict[str, object]:
 
 def build(force: bool = False) -> Dict[str, str]:
     """Compile every `csrc/*.cu` that is not built yet (all of them with
-    `force`), one nvcc process per source, all started together.  Returns
+    `force`), one nvcc process per source, all started together, in a
+    `kernel.build` span whose `sources` name those nvcc compiled.  Returns
     {name: library path}; a failed build raises with nvcc's output."""
-    with _build_lock:
+    with _build_lock, span("kernel.build", sources=[]) as built:
         paths = {name: _lib_path(name, src)
                  for name, src in sources().items()}
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -89,6 +92,7 @@ def build(force: bool = False) -> Dict[str, str]:
             if os.path.exists(paths[name]) and not force:
                 continue
             tmp = f"{paths[name]}.{os.getpid()}.tmp"
+            built.attrs["sources"].append(name)
             procs[name] = (tmp, subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

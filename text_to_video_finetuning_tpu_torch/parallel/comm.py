@@ -9,50 +9,62 @@ all-to-all (the exchange is its own adjoint), the all-gather's sums each
 rank's slot over the group by one all-to-all, so that gloo, which may lack
 a reduce-scatter, runs it.  `all_reduce` (tp's inference split) has none.
 
-Every call, forward or backward, adds its seconds and bytes to `STATS`
-under the kind of collective it runs ("all_to_all", "all_reduce",
-"all_gather"; an all-gather's backward counts as an all-to-all), so a
-caller reads what one request or one training step moved (`reset_stats`
-before, `STATS` after).  The bytes are those this rank sends.  On a CUDA tensor the seconds wait for the card first
-(`torch.cuda.synchronize`), so they are the collective's own.  Every
-collective takes CUDA tensors on gloo as on NCCL (gloo stages them through
-the host itself: the card's torch 2.11 ran all-to-all, all-gather and
-all-reduce of fp32 and bf16 card tensors over gloo).
+Every call, forward or backward, is a span `comm.<kind>` (utils/
+profiling.py) of the kind of collective it runs ("all_to_all",
+"all_reduce", "all_gather"; an all-gather's backward counts as an
+all-to-all), timed on the card with CUDA events when its tensor is there,
+and adds one call and its bytes to `STATS`, so a caller reads what one
+request or one training step moved (`reset_stats` before, `stats()`
+after, with the seconds of the spans since the reset; each training step
+and each serving batch starts with a reset, so what is kept stays one
+unit's).  The bytes are those this rank sends.  Nothing waits for the card: the seconds are read once the
+caller has waited for the work itself.  Every collective takes CUDA tensors
+on gloo as on NCCL (gloo stages them through the host itself: the card's
+torch 2.11 ran all-to-all, all-gather and all-reduce of fp32 and bf16 card
+tensors over gloo).
 """
 
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 
+from ..utils.profiling import span
+
 KINDS = ("all_to_all", "all_reduce", "all_gather")
-STATS: Dict[str, Dict[str, float]] = {}
+STATS: Dict[str, Dict[str, int]] = {}
+_spans: Dict[str, list] = {}       # each kind's spans since `reset_stats`
 
 
 def reset_stats():
     STATS.clear()
-    STATS.update({k: {"calls": 0, "seconds": 0.0, "bytes": 0}
-                  for k in KINDS})
+    STATS.update({k: {"calls": 0, "bytes": 0} for k in KINDS})
+    _spans.update({k: [] for k in KINDS})
 
 
 reset_stats()
 
 
+def stats(kinds: Sequence[str] = KINDS) -> Dict[str, Dict[str, float]]:
+    """{kind: {"calls", "seconds", "bytes"}} since `reset_stats`, read
+    after the caller has waited for the collectives' work: the seconds are
+    the spans' on the card where their tensors were, else on the host."""
+    return {k: dict(STATS[k], seconds=sum(s.settled_seconds()
+                                          for s in _spans[k]))
+            for k in kinds}
+
+
 @contextmanager
 def _timed(kind: str, tensor: torch.Tensor):
-    if tensor.is_cuda:
-        torch.cuda.synchronize(tensor.device)
-    t0 = time.perf_counter()
-    yield
-    if tensor.is_cuda:
-        torch.cuda.synchronize(tensor.device)
+    nbytes = tensor.numel() * tensor.element_size()
+    with span(f"comm.{kind}", device=tensor.is_cuda, bytes=nbytes) as s:
+        yield
     entry = STATS[kind]
     entry["calls"] += 1
-    entry["seconds"] += time.perf_counter() - t0
-    entry["bytes"] += tensor.numel() * tensor.element_size()
+    entry["bytes"] += nbytes
+    _spans[kind].append(s)
 
 
 def _all_to_all(tensor: torch.Tensor, group) -> torch.Tensor:

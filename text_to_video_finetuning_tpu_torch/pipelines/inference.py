@@ -4,7 +4,9 @@ text_to_video_finetuning_tpu/pipelines/inference.py).
 `initialize_pipeline` loads a diffusers pipeline directory onto a device
 (half precision, attention backend, LoRA and learned embeds from
 `lora_path`); `generate` answers one request on a warm pipeline: weighted
-prompt encoding, windowed `diffuse`, VAE decode; `inference` is the one-shot
+prompt encoding, windowed `diffuse`, VAE decode, each a span timed on the
+card (`pipeline.encode`, `pipeline.denoise`, `pipeline.decode`,
+utils/profiling.py); `inference` is the one-shot
 load-and-generate of the reference CLI.
 """
 
@@ -21,6 +23,7 @@ from ..lora.handler import LoraHandler
 from ..lora.overlay import collapse_lora_
 from ..ops.attention import AttentionBackend
 from ..utils import checkpoint as ckpt
+from ..utils.profiling import span
 from ..utils.prompt_weighting import encode_weighted_prompt
 from ..utils.tokenizer import CLIPTokenizer
 from .diffuse import diffuse
@@ -185,28 +188,37 @@ def generate(pipe: TextToVideoSDPipeline, prompt, negative_prompt=None,
     window_size = window_size or num_frames
 
     prompts = [prompt] if isinstance(prompt, str) else list(prompt)
-    prompt_embeds = encode_weighted_prompt(pipe, prompts)
-    negative_prompt_embeds = None
-    if negative_prompt:
-        negs = ([negative_prompt] if isinstance(negative_prompt, str)
-                else list(negative_prompt))
-        negative_prompt_embeds = encode_weighted_prompt(pipe, negs)
+    with span("pipeline.encode", device=True):
+        prompt_embeds = encode_weighted_prompt(pipe, prompts)
+        negative_prompt_embeds = None
+        if negative_prompt:
+            negs = ([negative_prompt] if isinstance(negative_prompt, str)
+                    else list(negative_prompt))
+            negative_prompt_embeds = encode_weighted_prompt(pipe, negs)
+        # classifier-free guidance's unconditional half too, which `diffuse`
+        # then takes as given
+        do_cfg = guidance_scale > 1.0
+        embeds = pipe.encode_prompt(prompts, negative_prompt, do_cfg,
+                                    prompt_embeds, negative_prompt_embeds)
+        if do_cfg:
+            negative_prompt_embeds, prompt_embeds = embeds.chunk(2)
 
-    init_latents = prepare_input_latents(
-        pipe, batch_size=len(prompts), num_frames=num_frames, height=height,
-        width=width, init_video=init_video, vae_batch_size=vae_batch_size,
-        generator=generator)
-    init_weight = init_weight if init_video is not None else 0
-
-    latents = diffuse(
-        pipe=pipe, latents=init_latents, init_weight=init_weight,
-        prompt=prompts, negative_prompt=negative_prompt,
-        prompt_embeds=prompt_embeds,
-        negative_prompt_embeds=negative_prompt_embeds,
-        num_inference_steps=num_steps, guidance_scale=guidance_scale,
-        window_size=window_size, rotate=loop or window_size < num_frames,
-        generator=generator, init_noise=init_noise, shifts=shifts)
-    return pipe.decode_latents(latents, batch_size=vae_batch_size)
+    with span("pipeline.denoise", device=True):
+        init_latents = prepare_input_latents(
+            pipe, batch_size=len(prompts), num_frames=num_frames,
+            height=height, width=width, init_video=init_video,
+            vae_batch_size=vae_batch_size, generator=generator)
+        init_weight = init_weight if init_video is not None else 0
+        latents = diffuse(
+            pipe=pipe, latents=init_latents, init_weight=init_weight,
+            prompt=prompts, negative_prompt=negative_prompt,
+            prompt_embeds=prompt_embeds,
+            negative_prompt_embeds=negative_prompt_embeds,
+            num_inference_steps=num_steps, guidance_scale=guidance_scale,
+            window_size=window_size, rotate=loop or window_size < num_frames,
+            generator=generator, init_noise=init_noise, shifts=shifts)
+    with span("pipeline.decode", device=True):
+        return pipe.decode_latents(latents, batch_size=vae_batch_size)
 
 
 def inference(model: str, prompt, negative_prompt=None, width: int = 256,

@@ -31,6 +31,18 @@ Where the JAX server differs, and why:
   worker thread; HTTP handler threads only parse, wait, write the mp4 and
   answer.
 
+Spans (utils/profiling.py): `T2VServer` starts a run ("serve") and times
+its load and warm-up (`serve.setup.load`, `serve.setup.warmup`, logged in
+one line); the worker records each request's wait from its submit to its
+batch's start (`serve.queue`, with the request's id) and each batch
+(`serve.batch`, also on the card's clock, with the worker's batch index and
+the ids of its requests), around `generate`'s stages and the post-process
+(`serve.postprocess`); a handler's mp4 write is `serve.respond`.  GET
+/stats adds them up: `queue_wait_seconds`, `generate_seconds` (the
+batches), the batches' stages on the card (`STAGES`: `encode_seconds`,
+`denoise_seconds`, `decode_seconds`, `postprocess_seconds`, on the host
+off it) and `respond_seconds`.
+
 On a mesh (`mesh`, one process per rank under torchrun) rank 0 runs the
 HTTP front end and the worker; before each batch, warm-ups included, it
 broadcasts the batch's requests (`broadcast_batch`), and every other
@@ -51,7 +63,9 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import itertools
 import json
+import logging
 import os
 import queue
 import threading
@@ -64,6 +78,18 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..parallel import comm
+from ..utils import profiling
+from ..utils.profiling import record, span
+
+logger = logging.getLogger("t2v_torch")
+
+# the /stats counter of each stage span of a batch
+STAGES = {"pipeline.encode": "encode_seconds",
+          "pipeline.denoise": "denoise_seconds",
+          "pipeline.decode": "decode_seconds",
+          "serve.postprocess": "postprocess_seconds"}
 
 
 @dataclass
@@ -109,6 +135,8 @@ def request_batch_key(req: GenerationRequest):
 @dataclass
 class _Pending:
     request: GenerationRequest
+    id: int = 0                  # the worker's count of submissions
+    submitted: float = 0.0       # time.perf_counter() at submit
     done: threading.Event = field(default_factory=threading.Event)
     frames: Optional[np.ndarray] = None     # (F, H, W, C) uint8
     error: Optional[str] = None
@@ -163,7 +191,10 @@ class BatchingWorker:
         self._stopped = False           # see shutdown() (lock)
         self.stats = {"requests": 0, "batches": 0, "errors": 0,
                       "rejected": 0, "max_batch_seen": 0,
-                      "generate_seconds": 0.0}
+                      "generate_seconds": 0.0, "queue_wait_seconds": 0.0,
+                      "respond_seconds": 0.0,
+                      **dict.fromkeys(STAGES.values(), 0.0)}
+        self._ids = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="t2v-batching-worker")
         self._thread.start()
@@ -185,9 +216,15 @@ class BatchingWorker:
                     f"{self._inflight} requests in flight (max_queue="
                     f"{self.max_queue}); retry later or raise --max-queue")
             self._inflight += 1
-            pending = _Pending(request=request)
+            pending = _Pending(request=request, id=next(self._ids),
+                               submitted=time.perf_counter())
             self._queue.put(pending)
         return pending
+
+    def count(self, key: str, value: float):
+        """Add `value` to the counter `key` of `stats`."""
+        with self._lock:
+            self.stats[key] += value
 
     def call(self, fn: Callable[[], Any]) -> Any:
         """Run `fn()` on the worker thread, between batches, and return its
@@ -312,25 +349,35 @@ class BatchingWorker:
         for pending in batch:
             pending.coalesced = len(batch)
             pending.head_seed = batch[0].request.seed
-        t0 = time.monotonic()
         error = None
-        try:
-            results = self.run_batch([p.request for p in batch])
-            if len(results) != len(batch):
-                raise RuntimeError(
-                    f"run_batch returned {len(results)} results for "
-                    f"{len(batch)} requests")
-            for pending, frames in zip(batch, results):
-                pending.frames = frames
-        except Exception as exc:  # noqa: BLE001 -- reported per request
-            traceback.print_exc()
-            error = f"{type(exc).__name__}: {exc}"
+        with span("serve.batch", device=True, batch=self.stats["batches"],
+                  requests=[p.id for p in batch]) as run:
+            waited = sum(record("serve.queue", p.submitted, run.start,
+                                request=p.id).seconds for p in batch)
+            try:
+                results = self.run_batch([p.request for p in batch])
+                if len(results) != len(batch):
+                    raise RuntimeError(
+                        f"run_batch returned {len(results)} results for "
+                        f"{len(batch)} requests")
+                for pending, frames in zip(batch, results):
+                    pending.frames = frames
+            except Exception as exc:  # noqa: BLE001 -- reported per request
+                traceback.print_exc()
+                error = f"{type(exc).__name__}: {exc}"
+        # the post-process's copy to the host has waited for the stages
+        stages = {} if error else {
+            STAGES[s.name]: s.settled_seconds()
+            for s in profiling.children(run) if s.name in STAGES}
         with self._lock:
             self.stats["requests"] += len(batch)
             self.stats["batches"] += 1
             self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"],
                                                len(batch))
-            self.stats["generate_seconds"] += time.monotonic() - t0
+            self.stats["generate_seconds"] += run.seconds
+            self.stats["queue_wait_seconds"] += waited
+            for key, seconds in stages.items():
+                self.stats[key] += seconds
             if error:
                 self.stats["errors"] += len(batch)
             self._inflight -= len(batch)
@@ -383,6 +430,7 @@ def run_requests(pipe, requests: List[GenerationRequest], device,
     of the server's worker and of a mesh's follower ranks."""
     if generate is None:
         from ..pipelines.inference import generate
+    comm.reset_stats()          # keeps this batch's collectives alone
     head = requests[0]
     prompts = [r.prompt for r in requests]
     negative = ([head.negative_prompt] * len(requests)
@@ -405,8 +453,9 @@ def run_requests(pipe, requests: List[GenerationRequest], device,
         vae_batch_size=head.vae_batch_size, num_steps=head.num_steps,
         guidance_scale=head.guidance_scale, init_video=init_video,
         init_weight=init_weight, loop=head.loop, seed=seed)
-    return [postprocess(video, r.remove_watermark, device)
-            for video, r in zip(videos, requests)]
+    with span("serve.postprocess", device=True):
+        return [postprocess(video, r.remove_watermark, device)
+                for video, r in zip(videos, requests)]
 
 
 def broadcast_batch(requests: Optional[List[GenerationRequest]]):
@@ -447,13 +496,15 @@ class T2VServer:
                  request_timeout_s: float = 3600.0, pipe=None,
                  max_queue: Optional[int] = None, device="cuda", mesh=None):
         from ..pipelines.inference import generate, initialize_pipeline
+        self.run_id = profiling.begin_run("serve")
         self.model = model
         self.output_dir = output_dir
         self.request_timeout_s = request_timeout_s
         os.makedirs(output_dir, exist_ok=True)
-        self.pipe = pipe if pipe is not None else initialize_pipeline(
-            model, use_fused_attention, lora_path, lora_rank,
-            lora_scale=lora_scale, device=device, mesh=mesh)
+        with span("serve.setup.load"):
+            self.pipe = pipe if pipe is not None else initialize_pipeline(
+                model, use_fused_attention, lora_path, lora_rank,
+                lora_scale=lora_scale, device=device, mesh=mesh)
         self.device = getattr(self.pipe, "device", device)
         self._generate = generate
         self.mesh = mesh
@@ -508,10 +559,25 @@ class T2VServer:
         builds every kernel with nvcc (ops/kernel_build.py) and cuDNN picks
         its algorithms at each new shape on first use."""
         req = request or GenerationRequest(prompt="warmup")
-        for b in sorted({min(max(1, int(b)), self.worker.max_batch)
-                         for b in batch_sizes}):
-            self.worker.call(lambda b=b: self.worker.run_batch([req] * b))
+        sizes = sorted({min(max(1, int(b)), self.worker.max_batch)
+                        for b in batch_sizes})
+        with span("serve.setup.warmup", batch_sizes=sizes):
+            for b in sizes:
+                self.worker.call(lambda b=b: self.worker.run_batch([req] * b))
+        self.log_setup()
         return req
+
+    def log_setup(self):
+        """One line of the set-up spans so far: the load, the warm-ups and
+        the kernel builds among them."""
+        run = [s for s in profiling.spans() if s.run == self.run_id]
+        built = [name for s in run if s.name == "kernel.build"
+                 for name in s.attrs["sources"]]
+        logger.info(
+            f"set-up: load {profiling.total(run, 'serve.setup.load'):.1f}s, "
+            f"warm-up {profiling.total(run, 'serve.setup.warmup'):.1f}s, "
+            f"kernel builds {profiling.total(run, 'kernel.build'):.1f}s"
+            + (f" ({', '.join(built)})" if built else ""))
 
     # -- HTTP ------------------------------------------------------------------
 
@@ -589,7 +655,9 @@ class T2VServer:
         frames = pending.frames
         path = os.path.join(self.output_dir, f"{uuid.uuid4().hex[:12]}.mp4")
         from ..data.video import export_to_video
-        export_to_video(frames, path, req.fps)
+        with span("serve.respond", request=pending.id) as respond:
+            export_to_video(frames, path, req.fps)
+        self.worker.count("respond_seconds", respond.seconds)
         seed_used = pending.head_seed if pending.head_seed is not None else 0
         resp = {"path": os.path.abspath(path),
                 "num_frames": int(frames.shape[0]),

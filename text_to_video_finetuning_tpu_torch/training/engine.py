@@ -73,6 +73,18 @@ waits at a barrier after each save.  The SIGTERM decision rides in the
 same all-reduce, so every rank stops at the same step.  Each rank samples
 the validation clip whole, the sp split off.
 
+Spans (utils/profiling.py), one run ("train") a `main`: set-up's
+`engine.setup.models` (the load and the casts) and `engine.setup.build`
+(LoRA, the optimizer, the data and the latent cache, resume); each step's
+`engine.data` (from the request for a batch to the batch on the device)
+and `engine.step` (with `step`), which holds the step's `engine.forward`,
+`engine.backward` and `engine.optimizer` (training/train_step.py) and,
+with a record, `engine.sync`, the read of the loss that waits for the
+card; `engine.save`.  One line after the first step reads the set-up
+spans; every 10th update's line reads the median step cycle and each
+phase's share of the interval (`step_split`), which TensorBoard takes as
+`step/*`.  Nothing waits for the card to time a span.
+
 `validation_data.compute_clip_score` scores each sample against its
 prompt with the CLIP model at `clip_model_path` (`eval/clip_score.py`,
 built at the first sample on the engine's device, by rank 0 alone) and
@@ -89,7 +101,6 @@ import os
 import shutil
 import signal
 import threading
-import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -109,9 +120,9 @@ from ..parallel.sequence import sequence_group
 from ..pipelines.text_to_video import TextToVideoSDPipeline
 from ..schedulers.ddpm import DDPMScheduler
 from ..utils import checkpoint as ckpt
-from ..utils import train_state_io
+from ..utils import profiling, train_state_io
 from ..utils.background import OneInFlight
-from ..utils.profiling import ProfilerTrace, StepTimer, unet3d_flops_per_step
+from ..utils.profiling import ProfilerTrace, span
 from ..utils.tokenizer import CLIPTokenizer
 from .optim import get_lr_schedule, get_optimizer, leaves, wrap_optimizer
 from .train_step import (TrainState, TrainStepConfig, attach_branches,
@@ -179,6 +190,29 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
                            "is available; pass device='cpu' to train on "
                            "the CPU")
     return device
+
+
+PHASES = ("data", "forward", "backward", "optimizer", "sync")
+
+
+def step_split(interval, records) -> Dict[str, float]:
+    """`step_seconds`, the median step cycle (from the request for its
+    batch to the end of its step) of `interval`, a list of (`engine.data`,
+    `engine.step`) spans, and the share of each of `PHASES` in the
+    interval's whole time: its data spans, and the `engine.<phase>` spans
+    inside its steps among `records`."""
+    steps = {step.id for _, step in interval}
+    split = dict.fromkeys(PHASES, 0.0)
+    split["data"] = sum(data.seconds for data, _ in interval)
+    for s in records:
+        phase = s.name[len("engine."):]
+        if s.parent in steps and phase in split and phase != "data":
+            split[phase] += s.seconds
+    whole = interval[-1][1].end - interval[0][0].start
+    out = {"step_seconds": float(np.median(
+        [step.end - data.start for data, step in interval]))}
+    out.update({k: v / whole for k, v in split.items()})
+    return out
 
 
 def _distributed() -> bool:
@@ -396,12 +430,13 @@ class RunRecord:
     """What one `main` run did, filled in when the caller passes
     `record=RunRecord()`:
 
-    * `steps`: each micro-step's (seconds, loss); on the card the step is
-      timed to the device synchronize that `StepTimer.tick` makes;
-      `grad_norms`: each micro-step's gradient norm before the clip;
-    * `saves`: each save's (what, seconds): a pipeline write (on its
-      background thread) or a train-state snapshot (the part the loop
-      waits for);
+    * `steps`: each micro-step's (seconds, loss), the seconds its
+      `engine.step` span took, which ends with the read of the loss
+      (`engine.sync`); `grad_norms`: each micro-step's gradient norm before
+      the clip;
+    * `saves`: each save's (what, seconds), its `engine.save` span: a
+      pipeline write (on its background thread) or a train-state snapshot
+      (the part the loop waits for);
     * `initial`: the train state the loop starts from (after a resume,
       the restored one), and `final`: the train state when the loop ends,
       as host snapshots (`utils/train_state_io.py::snapshot`);
@@ -413,13 +448,14 @@ class RunRecord:
       run's peak is their largest; the run resets the device's peak
       statistics at its start and at each span's end;
     * across ranks: `rank`, `world` and the process group's `backend`
-      (None without one); `syncs`, each step's gradient
-      all-reduce (seconds, bytes), timed from a device synchronize before
-      it to the read of its result; `comm`, each step's sequence-parallel
-      collectives, forward and backward, as {"all_to_all", "all_gather"}
-      of {"calls", "seconds", "bytes"} (parallel/comm.py, zeros without
-      `mesh_sp`); `frozen_bytes`, the bytes of frozen parameters this rank
-      holds (its shards under `mesh_fsdp`).
+      (None without one); `syncs`, each step's gradient all-reduce
+      (seconds, bytes), the seconds of its `comm.grad_all_reduce` span on
+      the card (on the host off it), read after the step's wait; `comm`,
+      each step's sequence-parallel collectives, forward and backward, as
+      {"all_to_all", "all_gather"} of {"calls", "seconds", "bytes"}
+      (`parallel/comm.py::stats`, zeros without `mesh_sp`);
+      `frozen_bytes`, the bytes of frozen parameters this rank holds (its
+      shards under `mesh_fsdp`).
 
     Without a record the run snapshots and reads back nothing more."""
     steps: List[Tuple[float, float]] = dataclasses.field(
@@ -437,11 +473,12 @@ class RunRecord:
         default_factory=list)
     frozen_bytes: int = 0
 
-    def timed(self, what: str, fn, *args, **kwargs):
-        """`fn(*args, **kwargs)`, its time appended to `saves`."""
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        self.saves.append((what, time.perf_counter() - t0))
+    def saving(self, what: str, fn, *args, **kwargs):
+        """`fn(*args, **kwargs)` in an `engine.save` span, whose seconds go
+        to `saves`."""
+        with span("engine.save", what=what) as s:
+            out = fn(*args, **kwargs)
+        self.saves.append((what, s.seconds))
         return out
 
     def mark(self, span: Optional[str], device: torch.device):
@@ -466,18 +503,19 @@ def main(device: Union[str, torch.device] = "cuda",
                                               TrainConfig)
            else train_config_from_dict(kwargs))
     logging.basicConfig(level=logging.INFO)
+    run_id = profiling.begin_run("train")
     check_supported(cfg)
     device = resolve_device(device)
     rank, world, device = init_distributed(device, backend)
     try:
-        return _run(cfg, device, rank, world, record)
+        return _run(cfg, device, rank, world, record, run_id)
     finally:
         if _distributed():
             torch.distributed.destroy_process_group()
 
 
 def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
-         record: Optional[RunRecord]) -> str:
+         record: Optional[RunRecord], run_id: int) -> str:
     keep = record is not None
     record = record if keep else RunRecord()
     record.rank, record.world = rank, world
@@ -515,217 +553,223 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
     output_dir = create_output_folders(cfg.output_dir, cfg)
     writer = _open_writer(cfg, output_dir) if is_main else None
 
-    scheduler_config, tokenizer, text_encoder, vae, unet = \
-        load_primary_models(cfg.pretrained_model_path, device,
-                            cfg.fused_groupnorm)
-    compute_dtype = (torch.bfloat16 if cfg.mixed_precision in ("fp16", "bf16")
-                     else torch.float32)
-    backend = resolve_attention_backend(cfg)
-    unet.set_attention_backend(backend)
-    if cfg.gradient_checkpointing:
-        unet.set_gradient_checkpointing(True, cfg.remat_policy)
-    noise_scheduler = DDPMScheduler(scheduler_config)
-    if not cfg.use_offset_noise and cfg.rescale_schedule:
-        noise_scheduler = noise_scheduler.rescale_betas_zero_snr()
+    with span("engine.setup.models"):
+        scheduler_config, tokenizer, text_encoder, vae, unet = \
+            load_primary_models(cfg.pretrained_model_path, device,
+                                cfg.fused_groupnorm)
+    with span("engine.setup.build"):
+        compute_dtype = (torch.bfloat16
+                         if cfg.mixed_precision in ("fp16", "bf16")
+                         else torch.float32)
+        backend = resolve_attention_backend(cfg)
+        unet.set_attention_backend(backend)
+        if cfg.gradient_checkpointing:
+            unet.set_gradient_checkpointing(True, cfg.remat_policy)
+        noise_scheduler = DDPMScheduler(scheduler_config)
+        if not cfg.use_offset_noise and cfg.rescale_schedule:
+            noise_scheduler = noise_scheduler.rescale_betas_zero_snr()
 
-    learning_rate = cfg.learning_rate
-    if cfg.scale_lr:
-        # reference train.py:548-551: lr x accum x batch x processes; the
-        # processes' count is the dp extent (JAX :390-394)
-        learning_rate = (learning_rate * cfg.gradient_accumulation_steps
-                         * cfg.train_batch_size * shape["dp"])
+        learning_rate = cfg.learning_rate
+        if cfg.scale_lr:
+            # reference train.py:548-551: lr x accum x batch x processes; the
+            # processes' count is the dp extent (JAX :390-394)
+            learning_rate = (learning_rate * cfg.gradient_accumulation_steps
+                             * cfg.train_batch_size * shape["dp"])
 
-    # LoRA (JAX engine.py:413-431); the step generator draws the inits, the
-    # same on every rank
-    lora_manager = LoraHandler(
-        version=cfg.lora_version, use_unet_lora=cfg.use_unet_lora,
-        use_text_lora=cfg.use_text_lora,
-        save_for_webui=cfg.save_lora_for_webui,
-        only_for_webui=cfg.only_lora_for_webui,
-        unet_replace_modules=cfg.unet_lora_modules,
-        text_encoder_replace_modules=cfg.text_encoder_lora_modules)
-    generator = torch.Generator(device).manual_seed(seed)
-    unet_lora, unet_sites, unet_negation = lora_manager.add_lora_to_model(
-        cfg.use_unet_lora, "unet", unet, lora_path=cfg.lora_path,
-        r=cfg.lora_rank, generator=generator)
-    text_lora, text_sites, text_negation = lora_manager.add_lora_to_model(
-        cfg.use_text_lora, "text_encoder", text_encoder,
-        lora_path=cfg.lora_path, r=cfg.lora_rank, generator=generator)
+        # LoRA (JAX engine.py:413-431); the step generator draws the inits, the
+        # same on every rank
+        lora_manager = LoraHandler(
+            version=cfg.lora_version, use_unet_lora=cfg.use_unet_lora,
+            use_text_lora=cfg.use_text_lora,
+            save_for_webui=cfg.save_lora_for_webui,
+            only_for_webui=cfg.only_lora_for_webui,
+            unet_replace_modules=cfg.unet_lora_modules,
+            text_encoder_replace_modules=cfg.text_encoder_lora_modules)
+        generator = torch.Generator(device).manual_seed(seed)
+        unet_lora, unet_sites, unet_negation = lora_manager.add_lora_to_model(
+            cfg.use_unet_lora, "unet", unet, lora_path=cfg.lora_path,
+            r=cfg.lora_rank, generator=generator)
+        text_lora, text_sites, text_negation = lora_manager.add_lora_to_model(
+            cfg.use_text_lora, "text_encoder", text_encoder,
+            lora_path=cfg.lora_path, r=cfg.lora_rank, generator=generator)
 
-    # trainable selection (reference handle_trainable_modules + negation)
-    unet_trainable = select_trainable(unet, cfg.trainable_modules,
-                                      unet_negation)
-    text_trainable = select_trainable(
-        text_encoder, cfg.trainable_text_modules if cfg.train_text_encoder
-        else None, text_negation)
-    vae.requires_grad_(False)
-    if compute_dtype == torch.bfloat16:
-        # reference train.py:680-686: frozen models in half precision,
-        # trainable tensors fp32 (classic mixed precision)
-        unet_trainable = cast_at_use(unet, unet_trainable, compute_dtype)
-        text_trainable = cast_at_use(text_encoder, text_trainable,
-                                     compute_dtype)
-        vae.to(compute_dtype)
+        # trainable selection (reference handle_trainable_modules + negation)
+        unet_trainable = select_trainable(unet, cfg.trainable_modules,
+                                          unet_negation)
+        text_trainable = select_trainable(
+            text_encoder, cfg.trainable_text_modules if cfg.train_text_encoder
+            else None, text_negation)
+        vae.requires_grad_(False)
+    with span("engine.setup.models"):
+        if compute_dtype == torch.bfloat16:
+            # reference train.py:680-686: frozen models in half precision,
+            # trainable tensors fp32 (classic mixed precision)
+            unet_trainable = cast_at_use(unet, unet_trainable, compute_dtype)
+            text_trainable = cast_at_use(text_encoder, text_trainable,
+                                         compute_dtype)
+            vae.to(compute_dtype)
+    with span("engine.setup.build"):
+        trainable = {}
+        if unet_trainable:
+            trainable["unet"] = unet_trainable
+        if text_trainable:
+            trainable["text"] = text_trainable
+        if unet_lora is not None:
+            trainable["unet_lora"] = unet_lora
+        if text_lora is not None:
+            trainable["text_lora"] = text_lora
+        if not trainable:
+            raise ValueError(
+                "nothing to train: set trainable_modules or enable LoRA")
+        n_trainable = sum(t.numel() for t in leaves(trainable))
+        n_frozen = sum(p.numel() for m in (unet, text_encoder, vae)
+                       for p in m.parameters() if not p.requires_grad)
+        frozen_host = None
+        mesh = (make_mesh(mesh_config(cfg), device.type)
+                if distributed and (shape["fsdp"] > 1 or sp > 1) else None)
+        if sp > 1:
+            # the data's frame axis over sp (JAX :609-611)
+            unet.set_sequence_parallel(sequence_group(mesh.get_group("sp")))
+        if shape["fsdp"] > 1:
+            # the placement the JAX engine uses (:581-607): the trainable state
+            # and the VAE replicated, the frozen UNet and CLIP over fsdp
+            if is_main:
+                # the frozen weights never change: rank 0 keeps them on the
+                # host for its saves, as the JAX engine keeps its host trees,
+                # and no save needs a gather
+                frozen_host = {
+                    "unet": train_state_io.to_host(plain_state_dict(unet)),
+                    "text": train_state_io.to_host(
+                        plain_state_dict(text_encoder))}
+            shard_frozen(unet, mesh, unet_trainable.values())
+            shard_frozen(text_encoder, mesh, text_trainable.values())
+        record.frozen_bytes = frozen_bytes(unet, text_encoder, vae)
+        logger.info(f"device={device} rank={rank}/{world} mesh={shape} "
+                    f"trainable params={n_trainable:,} frozen={n_frozen:,} "
+                    f"(held here: {record.frozen_bytes / 2**20:.1f} MiB)")
 
-    trainable = {}
-    if unet_trainable:
-        trainable["unet"] = unet_trainable
-    if text_trainable:
-        trainable["text"] = text_trainable
-    if unet_lora is not None:
-        trainable["unet_lora"] = unet_lora
-    if text_lora is not None:
-        trainable["text_lora"] = text_lora
-    if not trainable:
-        raise ValueError(
-            "nothing to train: set trainable_modules or enable LoRA")
-    n_trainable = sum(t.numel() for t in leaves(trainable))
-    n_frozen = sum(p.numel() for m in (unet, text_encoder, vae)
-                   for p in m.parameters() if not p.requires_grad)
-    frozen_host = None
-    mesh = (make_mesh(mesh_config(cfg), device.type)
-            if distributed and (shape["fsdp"] > 1 or sp > 1) else None)
-    if sp > 1:
-        # the data's frame axis over sp (JAX :609-611)
-        unet.set_sequence_parallel(sequence_group(mesh.get_group("sp")))
-    if shape["fsdp"] > 1:
-        # the placement the JAX engine uses (:581-607): the trainable state
-        # and the VAE replicated, the frozen UNet and CLIP over fsdp
-        if is_main:
-            # the frozen weights never change: rank 0 keeps them on the
-            # host for its saves, as the JAX engine keeps its host trees,
-            # and no save needs a gather
-            frozen_host = {
-                "unet": train_state_io.to_host(plain_state_dict(unet)),
-                "text": train_state_io.to_host(
-                    plain_state_dict(text_encoder))}
-        shard_frozen(unet, mesh, unet_trainable.values())
-        shard_frozen(text_encoder, mesh, text_trainable.values())
-    record.frozen_bytes = frozen_bytes(unet, text_encoder, vae)
-    logger.info(f"device={device} rank={rank}/{world} mesh={shape} "
-                f"trainable params={n_trainable:,} frozen={n_frozen:,} "
-                f"(held here: {record.frozen_bytes / 2**20:.1f} MiB)")
+        # optimizer: AdamW behind the clip, then the accumulation window, then
+        # the non-finite guard (the JAX engine's composition order)
+        schedule = get_lr_schedule(cfg.lr_scheduler, learning_rate,
+                                   cfg.lr_warmup_steps, cfg.max_train_steps)
+        group_overrides = {}
+        if cfg.extra_unet_params:
+            group_overrides["unet"] = dict(cfg.extra_unet_params)
+            group_overrides["unet_lora"] = dict(cfg.extra_unet_params)
+        if cfg.extra_text_encoder_params:
+            group_overrides["text"] = dict(cfg.extra_text_encoder_params)
+            group_overrides["text_lora"] = dict(cfg.extra_text_encoder_params)
+        optimizer = wrap_optimizer(
+            get_optimizer(schedule, cfg.adam_beta1, cfg.adam_beta2,
+                          cfg.adam_weight_decay, cfg.adam_epsilon,
+                          cfg.max_grad_norm, cfg.use_8bit_adam,
+                          group_overrides=group_overrides or None,
+                          base_lr=learning_rate),
+            cfg.gradient_accumulation_steps, cfg.skip_nonfinite_updates)
 
-    # optimizer: AdamW behind the clip, then the accumulation window, then
-    # the non-finite guard (the JAX engine's composition order)
-    schedule = get_lr_schedule(cfg.lr_scheduler, learning_rate,
-                               cfg.lr_warmup_steps, cfg.max_train_steps)
-    group_overrides = {}
-    if cfg.extra_unet_params:
-        group_overrides["unet"] = dict(cfg.extra_unet_params)
-        group_overrides["unet_lora"] = dict(cfg.extra_unet_params)
-    if cfg.extra_text_encoder_params:
-        group_overrides["text"] = dict(cfg.extra_text_encoder_params)
-        group_overrides["text_lora"] = dict(cfg.extra_text_encoder_params)
-    optimizer = wrap_optimizer(
-        get_optimizer(schedule, cfg.adam_beta1, cfg.adam_beta2,
-                      cfg.adam_weight_decay, cfg.adam_epsilon,
-                      cfg.max_grad_norm, cfg.use_8bit_adam,
-                      group_overrides=group_overrides or None,
-                      base_lr=learning_rate),
-        cfg.gradient_accumulation_steps, cfg.skip_nonfinite_updates)
+        # datasets
+        train_datasets = get_train_dataset(cfg.dataset_types, cfg.train_data,
+                                           tokenizer)
+        try:
+            for ds in (cfg.extra_train_data or []):
+                train_datasets += get_train_dataset(
+                    ds["dataset_types"], ds["train_data"], tokenizer)
+        except Exception as e:
+            print(f"Could not process extra train datasets due to an error : "
+                  f"{e}")
+        extend_datasets(train_datasets,
+                        ["train_data", "frames", "image_dir", "video_files"],
+                        extend=cfg.extend_dataset)
+        train_dataset = (train_datasets[0] if len(train_datasets) == 1
+                         else ConcatDataset(train_datasets))
+        use_bucketing = bool(
+            (cfg.train_data or {}).get("use_bucketing")) or any(
+            bool((ds.get("train_data") or {}).get("use_bucketing"))
+            for ds in (cfg.extra_train_data or []))
+        if use_bucketing and world > 1:
+            # JAX :536-546: every rank must emit the same batch sequence
+            logger.warning(
+                "use_bucketing: shape-grouped batch ordering is single-host "
+                "only; disabling bucket batching for this multi-host run")
+            use_bucketing = False
+        # the loader's batch is the global one; each rank loads its dp
+        # index's rows
+        train_dataloader = DataLoader(train_dataset, batch_size=global_batch,
+                                      shuffle=cfg.shuffle, seed=cfg.seed or 0,
+                                      pad_last=True, num_shards=dp,
+                                      shard_index=dp_index,
+                                      bucket_batching=use_bucketing)
+        cached = handle_cache_latents(
+            cfg, output_dir, train_dataloader, vae, device, dp_index, dp,
+            global_batch, write=fsdp_index == tp_index == sp_index == 0,
+            barrier=barrier)
+        if cached is not None:
+            train_dataloader = cached
 
-    # datasets
-    train_datasets = get_train_dataset(cfg.dataset_types, cfg.train_data,
-                                       tokenizer)
-    try:
-        for ds in (cfg.extra_train_data or []):
-            train_datasets += get_train_dataset(
-                ds["dataset_types"], ds["train_data"], tokenizer)
-    except Exception as e:
-        print(f"Could not process extra train datasets due to an error : "
-              f"{e}")
-    extend_datasets(train_datasets,
-                    ["train_data", "frames", "image_dir", "video_files"],
-                    extend=cfg.extend_dataset)
-    train_dataset = (train_datasets[0] if len(train_datasets) == 1
-                     else ConcatDataset(train_datasets))
-    use_bucketing = bool((cfg.train_data or {}).get("use_bucketing")) or any(
-        bool((ds.get("train_data") or {}).get("use_bucketing"))
-        for ds in (cfg.extra_train_data or []))
-    if use_bucketing and world > 1:
-        # JAX :536-546: every rank must emit the same batch sequence
-        logger.warning(
-            "use_bucketing: shape-grouped batch ordering is single-host "
-            "only; disabling bucket batching for this multi-host run")
-        use_bucketing = False
-    # the loader's batch is the global one; each rank loads its dp
-    # index's rows
-    train_dataloader = DataLoader(train_dataset, batch_size=global_batch,
-                                  shuffle=cfg.shuffle, seed=cfg.seed or 0,
-                                  pad_last=True, num_shards=dp,
-                                  shard_index=dp_index,
-                                  bucket_batching=use_bucketing)
-    cached = handle_cache_latents(
-        cfg, output_dir, train_dataloader, vae, device, dp_index, dp,
-        global_batch, write=fsdp_index == tp_index == sp_index == 0,
-        barrier=barrier)
-    if cached is not None:
-        train_dataloader = cached
+        # graceful preemption: the handler only flips an event; the loop
+        # finishes the step in flight, writes checkpoint-<step> and returns.
+        # Across ranks the flag rides in the gradient all-reduce, and every
+        # rank acts on the reduced one, so all stop at the same step.
+        stop_event = threading.Event()
+        stop_seen = [False]
 
-    # graceful preemption: the handler only flips an event; the loop
-    # finishes the step in flight, writes checkpoint-<step> and returns.
-    # Across ranks the flag rides in the gradient all-reduce, and every
-    # rank acts on the reduced one, so all stop at the same step.
-    stop_event = threading.Event()
-    stop_seen = [False]
+        syncs = []        # this step's (comm.grad_all_reduce span, bytes)
 
-    def grad_sync(trainable_now, scalars):
-        if keep and device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        flag = torch.tensor([float(stop_event.is_set())],
-                            device=scalars.device)
-        means, nbytes = all_reduce_grads(trainable_now,
-                                         extra=torch.cat([scalars, flag]))
-        stop_seen[0] = bool(means[-1] > 0)          # waits for the reduce
+        def grad_sync(trainable_now, scalars):
+            with span("comm.grad_all_reduce",
+                      device=device.type == "cuda") as s:
+                flag = torch.tensor([float(stop_event.is_set())],
+                                    device=scalars.device)
+                means, nbytes = all_reduce_grads(
+                    trainable_now, extra=torch.cat([scalars, flag]))
+                stop_seen[0] = bool(means[-1] > 0)  # waits for the reduce
+            syncs.append((s, nbytes))
+            return means[:-1]
+
+        def stopping() -> bool:
+            return stop_seen[0] if distributed else stop_event.is_set()
+
+        step_cfg = TrainStepConfig(
+            unet=unet, text_encoder=text_encoder, scheduler=noise_scheduler,
+            vae=vae, cache_latents=cfg.cache_latents,
+            scaling_factor=vae.config.scaling_factor,
+            unet_sites=tuple(unet_sites), text_sites=tuple(text_sites),
+            lora_version=cfg.lora_version,
+            lora_unet_dropout=cfg.lora_unet_dropout,
+            lora_text_dropout=cfg.lora_text_dropout,
+            use_offset_noise=cfg.use_offset_noise and not cfg.rescale_schedule,
+            offset_noise_strength=cfg.offset_noise_strength,
+            eval_train=bool(cfg.eval_train), two_pass=cfg.two_pass_loss,
+            ema_decay=(cfg.ema_decay if cfg.use_ema else 0.0),
+            ema_every=cfg.gradient_accumulation_steps,
+            rows=(row_start, global_batch) if distributed else None,
+            frames=(sp_index, sp) if sp > 1 else None,
+            grad_sync=grad_sync if distributed else None)
+        # split_two_pass: the two passes one after the other, only where a
+        # second pass runs (JAX engine.py:613-622)
+        if cfg.split_two_pass and (cfg.two_pass_loss
+                                   or text_is_trainable(trainable)):
+            logger.info("split_two_pass: the two loss passes run one after "
+                        "the other, each with its own backward")
+            train_step = make_split_train_step(step_cfg, optimizer)
+        else:
+            train_step = make_train_step(step_cfg, optimizer)
+        state = TrainState(step=0, trainable=trainable,
+                           opt_state=optimizer.init(trainable),
+                           generator=generator,
+                           ema=ema_init(trainable) if cfg.use_ema else None)
+        # full-state resume (step + Adam moments + generators), which the
+        # reference cannot do: its optimizer state is not saved; every rank
+        # reads it and takes its own default generator
+        if (cfg.resume_from_checkpoint
+                and train_state_io.has_train_state(
+                    cfg.resume_from_checkpoint)):
+            state = train_state_io.load_train_state(cfg.resume_from_checkpoint,
+                                                    state, rank)
+            logger.info(f"Restored train state (step {state.step}) from "
+                        f"{cfg.resume_from_checkpoint}")
         if keep:
-            record.syncs.append((time.perf_counter() - t0, nbytes))
-        return means[:-1]
-
-    def stopping() -> bool:
-        return stop_seen[0] if distributed else stop_event.is_set()
-
-    step_cfg = TrainStepConfig(
-        unet=unet, text_encoder=text_encoder, scheduler=noise_scheduler,
-        vae=vae, cache_latents=cfg.cache_latents,
-        scaling_factor=vae.config.scaling_factor,
-        unet_sites=tuple(unet_sites), text_sites=tuple(text_sites),
-        lora_version=cfg.lora_version,
-        lora_unet_dropout=cfg.lora_unet_dropout,
-        lora_text_dropout=cfg.lora_text_dropout,
-        use_offset_noise=cfg.use_offset_noise and not cfg.rescale_schedule,
-        offset_noise_strength=cfg.offset_noise_strength,
-        eval_train=bool(cfg.eval_train), two_pass=cfg.two_pass_loss,
-        ema_decay=(cfg.ema_decay if cfg.use_ema else 0.0),
-        ema_every=cfg.gradient_accumulation_steps,
-        rows=(row_start, global_batch) if distributed else None,
-        frames=(sp_index, sp) if sp > 1 else None,
-        grad_sync=grad_sync if distributed else None)
-    # split_two_pass: the two passes one after the other, only where a
-    # second pass runs (JAX engine.py:613-622)
-    if cfg.split_two_pass and (cfg.two_pass_loss
-                               or text_is_trainable(trainable)):
-        logger.info("split_two_pass: the two loss passes run one after the "
-                    "other, each with its own backward")
-        train_step = make_split_train_step(step_cfg, optimizer)
-    else:
-        train_step = make_train_step(step_cfg, optimizer)
-    state = TrainState(step=0, trainable=trainable,
-                       opt_state=optimizer.init(trainable),
-                       generator=generator,
-                       ema=ema_init(trainable) if cfg.use_ema else None)
-    # full-state resume (step + Adam moments + generators), which the
-    # reference cannot do: its optimizer state is not saved; every rank
-    # reads it and takes its own default generator
-    if (cfg.resume_from_checkpoint
-            and train_state_io.has_train_state(cfg.resume_from_checkpoint)):
-        state = train_state_io.load_train_state(cfg.resume_from_checkpoint,
-                                                state, rank)
-        logger.info(f"Restored train state (step {state.step}) from "
-                    f"{cfg.resume_from_checkpoint}")
-    if keep:
-        record.initial = train_state_io.snapshot(state)
+            record.initial = train_state_io.snapshot(state)
 
     # epochs sized in micro-batches; len(loader) is an upper bound under
     # bucket batching, so the loop below runs until max_train_steps
@@ -751,18 +795,20 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
     window_losses = []
     pending_losses = []   # buffered (global_step, device loss scalar)
 
-    td = cfg.train_data or {}
-    if not cfg.two_pass_loss and not text_is_trainable(trainable):
-        pass1 = "none"
-    elif text_is_trainable(trainable):
-        pass1 = "frame1"
-    else:
-        pass1 = "full"
-    timer = StepTimer(flops_per_step=unet3d_flops_per_step(
-        unet.config, batch=local_batch,
-        frames=td.get("n_sample_frames", 16),
-        height=td.get("height", 256), width=td.get("width", 256),
-        pass1=pass1), device=device)
+    interval = []         # (engine.data, engine.step) since the last log
+
+    def log_setup():
+        """The set-up spans of this run and its first step, which builds
+        the kernels a step runs."""
+        run = [s for s in profiling.spans() if s.run == run_id]
+        built = [name for s in run if s.name == "kernel.build"
+                 for name in s.attrs["sources"]]
+        logger.info(
+            f"set-up: models {profiling.total(run, 'engine.setup.models'):.1f}"
+            f"s, build {profiling.total(run, 'engine.setup.build'):.1f}s; "
+            f"step 1 {profiling.total(run, 'engine.step'):.1f}s, kernel "
+            f"builds {profiling.total(run, 'kernel.build'):.1f}s"
+            + (f" ({', '.join(built)})" if built else ""))
     profiler = ProfilerTrace(os.path.join(output_dir, "profile"))
 
     def current_params(prefer_ema: bool = True):
@@ -856,15 +902,15 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
         rngs = device_rngs()
         if is_main:
             params_now, lora_now = current_params()
-            pipe_saver.submit(record.timed, "pipeline", save_pipe, cfg,
+            pipe_saver.submit(record.saving, "pipeline", save_pipe, cfg,
                               output_dir, global_step,
                               cfg.pretrained_model_path, models, params_now,
                               lora_now, lora_manager, True,
                               context=f"{context} pipeline save")
-            record.timed("train state snapshot", state_saver.save,
-                         os.path.join(output_dir,
-                                      f"checkpoint-{global_step}"),
-                         state, rngs)
+            record.saving("train state snapshot", state_saver.save,
+                          os.path.join(output_dir,
+                                       f"checkpoint-{global_step}"),
+                          state, rngs)
             prune_checkpoints(output_dir, cfg.checkpoints_total_limit,
                               in_flight_step=global_step)
         barrier()
@@ -884,92 +930,17 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
     if (cfg.save_on_preemption
             and threading.current_thread() is threading.main_thread()):
         prev_sigterm = signal.signal(signal.SIGTERM, _on_preempt)
-    # join the savers on every exit path: an in-flight write would
-    # otherwise never be joined and its error lost
-    try:
+    def batches():
+        """The loader's batches over the epochs, the first epoch's
+        `resume_step` skipped; between epochs it stops once the run is done
+        or stopping."""
+        nonlocal epoch
         while global_step < cfg.max_train_steps and not stopping():
             epoch_batches = 0
             for step, batch in enumerate(train_dataloader):
                 epoch_batches += 1
-                if should_skip_resume_step(cfg, epoch, step):
-                    continue
-                last_prompt = batch["text_prompt"][0]
-                device_batch = {
-                    "pixel_values": torch.as_tensor(
-                        np.asarray(batch["pixel_values"], np.float32),
-                        device=device),
-                    "prompt_ids": torch.as_tensor(
-                        np.asarray(batch["prompt_ids"], np.int64),
-                        device=device),
-                }
-                # the profiler window counts steps since this run started
-                if cfg.profile_steps and run_steps == 1:
-                    profiler.start()
-                mark(f"after step {run_steps}" if run_steps else "set-up")
-                comm.reset_stats()
-                t0 = time.perf_counter()
-                state, metrics = train_step(state, device_batch)
-                # window-mean train_loss (reference train.py:855-890), kept
-                # on the device until logging; across ranks the mean over
-                # the world
-                window_losses.append(metrics["loss"])
-                micro_step += 1
-                run_steps += 1
-                if cfg.profile_steps and run_steps == 1 + cfg.profile_steps:
-                    logger.info(f"profiler trace written to "
-                                f"{profiler.stop()}")
-                timer.tick()
-                if keep:
-                    record.steps.append((time.perf_counter() - t0,
-                                         float(metrics["loss"])))
-                    record.grad_norms.append(float(metrics["grad_norm"]))
-                    record.comm.append({k: dict(comm.STATS[k]) for k in
-                                        ("all_to_all", "all_gather")})
-                mark(f"step {run_steps}")
-
-                # global_step counts optimizer updates, one per
-                # gradient_accumulation_steps micro-batches
-                if micro_step % cfg.gradient_accumulation_steps != 0:
-                    continue
-                global_step += 1
-                train_loss = torch.stack(window_losses).mean()
-                window_losses = []
-                pending_losses.append((global_step, train_loss))
-
-                if global_step % 10 == 0 or global_step == 1:
-                    if writer is not None:
-                        for gs, tl in pending_losses:
-                            writer.add_scalar("train_loss", float(tl), gs)
-                    pending_losses = []
-                    stats = timer.stats()
-                    drops = ""
-                    if metrics.get("notfinite_drops"):
-                        drops = (f" nonfinite_drops="
-                                 f"{metrics['notfinite_drops']}")
-                    grad_norm = float(metrics["grad_norm"])
-                    logger.info(
-                        f"step {global_step} loss={float(train_loss):.4f} "
-                        f"grad_norm={grad_norm:.3f} "
-                        f"({stats['step_time_s']:.2f}s/step, "
-                        f"mfu={stats['mfu']:.1%}){drops}")
-                    if writer is not None:
-                        writer.add_scalar("grad_norm", grad_norm,
-                                          global_step)
-                        writer.add_scalar("steps_per_sec",
-                                          stats["steps_per_sec"], global_step)
-                        writer.add_scalar("mfu", stats["mfu"], global_step)
-
-                if global_step % cfg.checkpointing_steps == 0:
-                    checkpoint(f"checkpoint-{global_step}")
-                    last_ckpt_step = global_step
-
-                if should_sample(global_step, cfg.validation_steps,
-                                 cfg.validation_data):
-                    vd = cfg.validation_data
-                    sample(vd.get("prompt") or last_prompt, batch)
-
-                if global_step >= cfg.max_train_steps or stopping():
-                    break
+                if not should_skip_resume_step(cfg, epoch, step):
+                    yield batch
             epoch += 1
             if epoch_batches == 0:
                 raise ValueError(
@@ -977,6 +948,104 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
                     "(dataset smaller than the batch size, or every bucket "
                     "below batch size); reduce train_batch_size or enable "
                     "extend_dataset")
+
+    stream = batches()
+    # join the savers on every exit path: an in-flight write would
+    # otherwise never be joined and its error lost
+    try:
+        while True:
+            # the profiler window counts steps since this run started
+            if cfg.profile_steps and run_steps == 1:
+                profiler.start()
+            with span("engine.data", step=run_steps + 1) as data:
+                batch = next(stream, None)
+                if batch is not None:
+                    device_batch = {
+                        "pixel_values": torch.as_tensor(
+                            np.asarray(batch["pixel_values"], np.float32),
+                            device=device),
+                        "prompt_ids": torch.as_tensor(
+                            np.asarray(batch["prompt_ids"], np.int64),
+                            device=device),
+                    }
+            if batch is None:
+                break
+            last_prompt = batch["text_prompt"][0]
+            mark(f"after step {run_steps}" if run_steps else "set-up")
+            comm.reset_stats()
+            syncs.clear()
+            run_steps += 1
+            with span("engine.step", step=run_steps) as step_span:
+                state, metrics = train_step(state, device_batch)
+                if keep:
+                    with span("engine.sync"):
+                        loss_now = float(metrics["loss"])
+                        grad_norm_now = float(metrics["grad_norm"])
+            # window-mean train_loss (reference train.py:855-890), kept on
+            # the device until logging; across ranks the mean over the world
+            window_losses.append(metrics["loss"])
+            micro_step += 1
+            interval.append((data, step_span))
+            if run_steps == 1:
+                log_setup()
+            if cfg.profile_steps and run_steps == 1 + cfg.profile_steps:
+                logger.info(f"profiler trace written to "
+                            f"{profiler.stop()}")
+            if keep:
+                record.steps.append((step_span.seconds, loss_now))
+                record.grad_norms.append(grad_norm_now)
+                record.syncs.extend((s.settled_seconds(), n)
+                                    for s, n in syncs)
+                record.comm.append(comm.stats(("all_to_all",
+                                               "all_gather")))
+            mark(f"step {run_steps}")
+
+            # global_step counts optimizer updates, one per
+            # gradient_accumulation_steps micro-batches
+            if micro_step % cfg.gradient_accumulation_steps != 0:
+                continue
+            global_step += 1
+            train_loss = torch.stack(window_losses).mean()
+            window_losses = []
+            pending_losses.append((global_step, train_loss))
+
+            if global_step % 10 == 0 or global_step == 1:
+                if writer is not None:
+                    for gs, tl in pending_losses:
+                        writer.add_scalar("train_loss", float(tl), gs)
+                pending_losses = []
+                split = step_split(interval, profiling.spans())
+                interval = []
+                drops = ""
+                if metrics.get("notfinite_drops"):
+                    drops = (f" nonfinite_drops="
+                             f"{metrics['notfinite_drops']}")
+                if profiling.dropped():
+                    # the ring's oldest spans went: a split may miss some
+                    drops += f" spans_dropped={profiling.dropped()}"
+                grad_norm = float(metrics["grad_norm"])
+                logger.info(
+                    f"step {global_step} loss={float(train_loss):.4f} "
+                    f"grad_norm={grad_norm:.3f} "
+                    f"({split['step_seconds']:.2f}s/step: " + ", ".join(
+                        f"{k} {split[k]:.0%}" for k in PHASES)
+                    + f"){drops}")
+                if writer is not None:
+                    writer.add_scalar("grad_norm", grad_norm, global_step)
+                    for k, v in split.items():
+                        writer.add_scalar(f"step/{k}", v, global_step)
+
+            if global_step % cfg.checkpointing_steps == 0:
+                checkpoint(f"checkpoint-{global_step}")
+                last_ckpt_step = global_step
+
+            if should_sample(global_step, cfg.validation_steps,
+                             cfg.validation_data):
+                vd = cfg.validation_data
+                sample(vd.get("prompt") or last_prompt, batch)
+
+            if global_step >= cfg.max_train_steps or stopping():
+                break
         if stopping() and global_step > 0 and global_step != last_ckpt_step:
             # the preemption checkpoint: what the periodic path writes
             logger.warning(f"graceful stop at step {global_step}: writing "
@@ -993,6 +1062,7 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
                                f"a training failure: {join_exc}")
         raise
     finally:
+        stream.close()
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
 
@@ -1017,9 +1087,10 @@ def _run(cfg: TrainConfig, device: torch.device, rank: int, world: int,
         # already durable
         if is_main:
             params_now, lora_now = current_params()
-            record.timed("pipeline", save_pipe, cfg, output_dir, global_step,
-                         cfg.pretrained_model_path, models, params_now,
-                         lora_now, lora_manager, is_checkpoint=False)
+            record.saving("pipeline", save_pipe, cfg, output_dir,
+                          global_step, cfg.pretrained_model_path, models,
+                          params_now, lora_now, lora_manager,
+                          is_checkpoint=False)
         barrier()
     mark("final save")
     if writer is not None:

@@ -18,8 +18,12 @@ embeddings included.
 behind global-norm clipping, optionally inside the accumulation window and
 the non-finite guard, training/optim.py) and the EMA;
 `make_split_train_step` runs the two passes one after the other, each with
-its own backward, on the same draws (`draw_step`).  Unlike the JAX steps,
-both update the trainable tensors and the optimizer state in place.
+its own backward, on the same draws (`draw_step`).  Each step records its
+`engine.forward` (on the card with `allocated`, the device memory its end
+leaves, what the backward reads), `engine.backward` and `engine.optimizer`
+spans (utils/profiling.py); the split step's carry `pass`.  Unlike the
+JAX steps, both update the trainable tensors and the optimizer state in
+place.
 
 A full finetune in bf16 keeps its trainable tensors in fp32 and casts them
 to bf16 where a layer uses them (`training/trainable.py::cast_at_use`), as
@@ -72,6 +76,7 @@ from torch import nn
 from ..lora.overlay import attach_lora, dropout_masks, prepare_branch
 from ..lora.sites import LoraSite
 from ..schedulers.ddpm import DDPMScheduler
+from ..utils.profiling import span
 from .optim import ClippedAdamW, WrappedOptimizer, WrappedState, leaves
 
 
@@ -399,6 +404,13 @@ def _finish_step(cfg: TrainStepConfig, optimizer, state: TrainState,
     return dataclasses.replace(state, step=state.step + 1), metrics
 
 
+def _forward_end(fwd, loss: torch.Tensor):
+    """On the card, the device memory a forward leaves allocated: what the
+    backward will read, the state included."""
+    if loss.is_cuda:
+        fwd.attrs["allocated"] = torch.cuda.memory_allocated(loss.device)
+
+
 def make_train_step(cfg: TrainStepConfig,
                     optimizer: Union[ClippedAdamW, WrappedOptimizer]):
     """train_step(state, batch) -> (state, metrics): loss, backward,
@@ -410,9 +422,13 @@ def make_train_step(cfg: TrainStepConfig,
     def train_step(state: TrainState, batch):
         for p in leaves(state.trainable):
             p.grad = None
-        loss, aux = loss_fn(state.trainable, batch, state.generator)
-        loss.backward()
-        return _finish_step(cfg, optimizer, state, loss, aux)
+        with span("engine.forward") as fwd:
+            loss, aux = loss_fn(state.trainable, batch, state.generator)
+            _forward_end(fwd, loss)
+        with span("engine.backward"):
+            loss.backward()
+        with span("engine.optimizer"):
+            return _finish_step(cfg, optimizer, state, loss, aux)
 
     return train_step
 
@@ -433,18 +449,25 @@ def make_split_train_step(cfg: TrainStepConfig,
     def train_step(state: TrainState, batch):
         for p in leaves(state.trainable):
             p.grad = None
-        draws = draw_step(cfg, state.trainable, batch, state.generator)
-        loss0, aux0 = loss0_fn(state.trainable, batch, state.generator,
-                               draws=draws)
-        loss0.backward()
+        with span("engine.forward", **{"pass": 0}) as fwd:
+            draws = draw_step(cfg, state.trainable, batch, state.generator)
+            loss0, aux0 = loss0_fn(state.trainable, batch, state.generator,
+                                   draws=draws)
+            _forward_end(fwd, loss0)
+        with span("engine.backward", **{"pass": 0}):
+            loss0.backward()
         loss0 = loss0.detach()
-        loss1, aux1 = loss1_fn(state.trainable, batch, state.generator,
-                               draws=draws)
+        with span("engine.forward", **{"pass": 1}) as fwd:
+            loss1, aux1 = loss1_fn(state.trainable, batch, state.generator,
+                                   draws=draws)
+            _forward_end(fwd, loss1)
         if loss1.requires_grad:
-            loss1.backward()
+            with span("engine.backward", **{"pass": 1}):
+                loss1.backward()
         aux = {"loss0": aux0["loss0"], "loss1": aux1["loss1"]}
-        return _finish_step(cfg, optimizer, state, loss0 + loss1.detach(),
-                            aux)
+        with span("engine.optimizer"):
+            return _finish_step(cfg, optimizer, state,
+                                loss0 + loss1.detach(), aux)
 
     return train_step
 
