@@ -27,12 +27,18 @@ all at the full width of the ms-1.7b model (random weights from a seed).
      fp32 on the `wmma` route, bf16 on both routes (`sm90` by default); K1
      on both routes, its plain version and SDPA's forward timed at the
      serving shape and every training shape (FLASH_TIMED);
+ 3b. K6 (the short-key attention forward, ops/short_attention.py) against
+     its plain version and the fp32 plain attention at the serving cell's
+     short shape classes at full size (SHORT_C4: ms-1.7b at 256x256x16,
+     batch 4 x CFG 2), timed beside `plain_attention` in bf16 (the path it
+     replaced) and its bytes bound, and summed per UNet call;
   4. the serving path: ms-1.7b UNet + 1024-wide CLIP + SD VAE written as a
      pipeline directory, loaded with `initialize_pipeline`, three requests
      answered by `generate` on the one warm pipeline, with the K1 launch
      count checked per request, every launch on the `sm90` route;
   5. K1 in context: request (a)'s first full-width UNet forward, flash vs
-     plain, with fp32 and with bf16 weights;
+     plain, with fp32 and with bf16 weights, and bf16 `auto` (K1 and K6)
+     against the fp32 plain output;
   6. K2 and K3 against the plain backward on FLASH_CHECKED, fp32 (the
      `wmma` route) and bf16 (both routes), dO = cos(o); K2 and K3 on both
      routes, their plain versions and SDPA's backward (forward + backward
@@ -117,7 +123,9 @@ all at the full width of the ms-1.7b model (random weights from a seed).
      no_batch, one of 24 frames in windows of 8), then img2img from
      request (a)'s mp4 at init_weight 0.5: every answer 200 with its mp4,
      /stats 5 requests in 4 batches, the K1 launches of each batch derived
-     from its steps and windows, then a drain that answers 503 and exits;
+     from its steps and windows, /stats' attention calls by path: none on
+     the plain path and SHORT_PER_UNET (61) on K6 a UNet call, then a
+     drain that answers 503 and exits;
      (d) `inference_main` writes one 16-frame mp4; (e) LaMa
      (`inpaint_watermark`, random big-lama weights from SEED) on request
      (a)'s frames on the card against the CPU.  Every K1 launch of (a)-(c)
@@ -265,6 +273,21 @@ STEPS, GUIDANCE, SIZE = 25, 9.0, 256
 # profiler took 21-26 s to sum a 25-step batch's kernels)
 TRACE_STEPS = 5
 FLASH_PER_UNET = 5      # 1024-token self-attentions per UNet forward at 256px
+# the short attentions of one UNet call at 256x256x16, batch 4 x CFG 2 (the
+# serving cell's): (label, batch, q_len, kv_len, heads, calls) at head_dim
+# 64.  Temporal attention over 16 frames at levels 0-2 (batch: videos x
+# positions; two self-attentions in each of 5 / 5 / 5 temporal
+# transformers), transformer_in's (8 heads), the mid block's two temporal
+# ones and its 16-token spatial self-attention; spatial self-attention at
+# 256 and 64 tokens; cross-attention over 77 text tokens at every level
+SHORT_C4 = [
+    ("temporal_l0", 8192, 16, 16, 5, 10), ("temporal_l1", 2048, 16, 16, 10, 10),
+    ("temporal_l2", 512, 16, 16, 20, 10), ("temporal_in", 8192, 16, 16, 8, 2),
+    ("mid_16", 128, 16, 16, 20, 3), ("self_256", 128, 256, 256, 10, 5),
+    ("self_64", 128, 64, 64, 20, 5), ("cross_1024", 128, 1024, 77, 5, 5),
+    ("cross_256", 128, 256, 77, 10, 5), ("cross_64", 128, 64, 77, 20, 5),
+    ("cross_16", 128, 16, 77, 20, 1)]
+SHORT_PER_UNET = sum(s[-1] for s in SHORT_C4)    # 61: the rest of the 66
 TRAIN_STEPS = 4
 HEADLINE = "conv_attn_dense+skiplow3"   # bench.py's remat policy
 HIRES = dict(frames=16, latent_hw=(40, 72))
@@ -674,6 +697,66 @@ def check_k1(fa):
     return timed
 
 
+def short_bound(b, sq, sk, h, d, dtype):
+    """(least ms on the card, 'operations' or 'bytes') for one K6 call: its
+    two products over the peak rate, against q, k, v read once and o
+    written once over the memory rate."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * b * sq + 2 * b * sk) * h * d * item
+    t_ops = 4 * b * h * sq * sk * d / PEAK_OPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_k6(sa):
+    """Phase 3b: K6 at each SHORT_C4 shape in bf16, against its plain twin
+    and `plain_attention` on the same bf16 inputs and the fp32 plain
+    attention of those inputs in fp32 (BF16_TOL), timed beside
+    `plain_attention` in bf16 and its bound.  Returns the per-shape records
+    and the per-UNet sums.  The launches made here are not the main
+    path's."""
+    from text_to_video_finetuning_tpu_torch.ops.attention import (
+        plain_attention)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes, total = {}, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for label, b, sq, sk, h, calls in SHORT_C4:
+        q, k, v = (torch.randn(b, s, h, 64, device="cuda", generator=g,
+                               dtype=torch.bfloat16) for s in (sq, sk, sk))
+        scale = 64 ** -0.5
+        ref = plain_attention(q.float(), k.float(), v.float(), scale)
+        o = sa.short_attention_cuda(q, k, v, scale)
+        torch.cuda.synchronize()
+        errs = {name: (o.float() - want.float()).abs().max().item()
+                for name, want in (
+                    ("fp32", ref),
+                    ("plain", plain_attention(q, k, v, scale)),
+                    ("twin", sa.short_attention_reference(q, k, v, scale)))}
+        del ref
+        if not all(e < BF16_TOL for e in errs.values()):
+            fail(f"K6 disagrees with its plain versions at {label}: {errs}")
+        ms = cuda_ms(lambda: sa.short_attention_cuda(q, k, v, scale))
+        plain_ms = cuda_ms(lambda: plain_attention(q, k, v, scale))
+        bound_ms, bound_by = short_bound(b, sq, sk, h, 64, torch.bfloat16)
+        shapes[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, calls_per_unet=calls,
+                             **{f"max_abs_err_{n}": e
+                                for n, e in errs.items()})
+        for key in total:
+            total[key] += calls * shapes[label][key]
+        print(f"K6 {label} ({b}x{sq}x{sk}x{h}x64) bf16: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{100 * bound_ms / ms:.1f} % of it), {calls} a UNet call; "
+              "max|do| against fp32 plain {fp32:.3e}, bf16 plain "
+              "{plain:.3e}, twin {twin:.3e}".format(**errs))
+        del q, k, v, o
+    print(f"K6 per UNet call ({SHORT_PER_UNET} calls): {total['ms']:.3f} ms, "
+          f"plain {total['plain_ms']:.3f} ms, bound {total['bound_ms']:.3f} "
+          f"ms ({100 * total['bound_ms'] / total['ms']:.1f} % of it) "
+          "(CUDA events, median of 10)")
+    return dict(shapes=shapes, per_unet=total)
+
+
 def check_k2_k3(fa):
     """Phase 6: K2 and K3 against the plain backward on K1_SHAPES, the
     training and the 576x320 shapes, fp32 and bf16, dO = cos(o) (the
@@ -796,7 +879,8 @@ def check_unet_in_context(unet, args):
     bf16 forwards of this random-weight UNet differ by about bf16's own
     noise (plain bf16 vs fp32 is ~1.2e-2 relative L2), so the kernel is held
     to adding nothing beyond it: its bf16 error against the fp32 plain
-    output may exceed the plain bf16 error by UNET_BF16_EXCESS at most.
+    output may exceed the plain bf16 error by UNET_BF16_EXCESS at most, and
+    so may `auto`'s (K1 and K6, the serving path's).
     Leaves the model in fp32 with the `auto` backend."""
     outs = {}
     with torch.inference_mode():
@@ -804,7 +888,7 @@ def check_unet_in_context(unet, args):
             unet.to(dtype)
             cast = tuple(a.to(dtype) if a.is_floating_point() else a
                          for a in args)
-            for backend in ("flash", "plain"):
+            for backend in ("flash", "plain", "auto"):
                 unet.set_attention_backend(backend)
                 outs[dtype, backend] = unet(*cast).float()
         unet.set_attention_backend("auto")
@@ -814,14 +898,17 @@ def check_unet_in_context(unet, args):
                   outs[torch.bfloat16, "plain"])
     err_flash = rel_l2(outs[torch.bfloat16, "flash"], ref)
     err_plain = rel_l2(outs[torch.bfloat16, "plain"], ref)
+    err_auto = rel_l2(outs[torch.bfloat16, "auto"], ref)
     print(f"UNet on request a's first input, relative L2: fp32 flash vs "
           f"plain {fp32:.3e}; bf16 flash vs plain {bf16:.3e}; against fp32 "
-          f"plain: bf16 flash {err_flash:.3e}, bf16 plain {err_plain:.3e}")
+          f"plain: bf16 flash {err_flash:.3e}, bf16 auto (K1 and K6) "
+          f"{err_auto:.3e}, bf16 plain {err_plain:.3e}")
     if not fp32 <= UNET_FP32_REL_L2_TOL:
         fail(f"UNet fp32 flash vs plain relative L2 {fp32}")
-    if not err_flash <= UNET_BF16_EXCESS * err_plain:
-        fail(f"UNet bf16 flash error {err_flash} exceeds plain's "
-             f"{err_plain} by more than {UNET_BF16_EXCESS}x")
+    for name, err in (("flash", err_flash), ("auto", err_auto)):
+        if not err <= UNET_BF16_EXCESS * err_plain:
+            fail(f"UNet bf16 {name} error {err} exceeds plain's "
+                 f"{err_plain} by more than {UNET_BF16_EXCESS}x")
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -934,9 +1021,10 @@ def counters():
     """{kernel: (module, attribute)} of the wrappers' launch counts."""
     from text_to_video_finetuning_tpu_torch.ops import flash_attention as fa
     from text_to_video_finetuning_tpu_torch.ops import groupnorm as gn
+    from text_to_video_finetuning_tpu_torch.ops import short_attention as sa
     return {"K1": (fa, "launch_count"), "K2": (fa, "dkv_launch_count"),
             "K3": (fa, "dq_launch_count"), "K4": (gn, "fwd_launch_count"),
-            "K5": (gn, "bwd_launch_count"),
+            "K5": (gn, "bwd_launch_count"), "K6": (sa, "launch_count"),
             "K1_sm90": (fa, "fwd_sm90_launch_count"),
             "K1_wmma": (fa, "fwd_wmma_launch_count"),
             "K2_sm90": (fa, "dkv_sm90_launch_count"),
@@ -2304,6 +2392,15 @@ def http_phase(pipeline_dir, root, video_a):
         if k1 != expected or wmma:
             fail(f"served batch of {size} ({frames}f): {k1} K1 launches "
                  f"({wmma} on wmma), expected {expected} on sm90")
+    unet_calls = sum((STEPS - start if init else STEPS) * (frames // window)
+                     for _, frames, window, init, *_ in batches)
+    paths = (stats["attention_plain_calls"], stats["attention_short_calls"])
+    print(f"/stats attention calls: plain {paths[0]}, K6 {paths[1]} over "
+          f"{unet_calls} UNet calls (expected 0 and {SHORT_PER_UNET} a "
+          "call)")
+    if paths != (0, SHORT_PER_UNET * unet_calls):
+        fail(f"served attention calls by path {paths}, expected (0, "
+             f"{SHORT_PER_UNET * unet_calls})")
     if sorted(b[0] for b in batches) != [1, 1, 1, 2]:
         fail(f"served batch sizes {[b[0] for b in batches]}")
     b2 = next(b[6] for b in batches if b[0] == 2)
@@ -3902,6 +3999,11 @@ def main() -> int:
     # 3. K1 against its plain version
     k1_timed = check_k1(fa)
 
+    lap("3b")
+    # 3b. K6 against its plain versions at the serving cell's short shapes
+    from text_to_video_finetuning_tpu_torch.ops import short_attention as sa
+    k6_timed = check_k6(sa)
+
     lap("4-5")
     # 4-5. the serving path at full width; the pipeline directory stays for
     # phase 14
@@ -4077,6 +4179,15 @@ def main() -> int:
             "launches_by_path": launches(k),
             "launches_by_route": by_route(k), **gn_timed[k],
             "shape": "N=16 C=960 H=W=32 G=32 bf16 (256 px training)"})
+    records.append({
+        "name": "short_attn_fwd_sm90", "route": "cuda",
+        "source": source + "short_attn_fwd_sm90.cu", "replaces": None,
+        "launches": sum(launches("K6").values()),
+        "launches_by_path": launches("K6"),
+        **k6_timed["per_unet"], "calls_per_unet": SHORT_PER_UNET,
+        "shape": "the short attentions of one UNet call at 256x256x16, "
+                 "batch 4 x CFG 2, bf16 (serving)",
+        "shapes": k6_timed["shapes"]})
     for rec in records:
         if rec["launches"] == 0:
             fail(f"{rec['name']} was never launched on the main path")

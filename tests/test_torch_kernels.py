@@ -17,6 +17,16 @@ plain gradients.  At 16 keys (temporal attention, which `auto` keeps on the
 plain path) the bf16 P and dS fed to the tensor cores weigh more, and the
 kernel's error reaches about 2x the plain backward's.
 
+K6 (the short-key attention forward, bf16 / fp16 at head_dim 64, at most
+256 keys): within 2e-2 (K1's bf16 bound) of the fp32 plain result of the
+same half-precision inputs, of `plain_attention` run in the half dtype and
+of K6's plain twin, at each shape class of the serving cell (the batch
+cut), the 576x320 model's, with padded keys (77, 45, 180) and on strided
+BSHD views.  The fp32 oracle takes the rounded inputs: over 16 keys the
+outputs reach |o| ~ 2, where the inputs' own bf16 rounding alone moved
+o by 2.0e-2 from the fp32 inputs' result on the card, as much in the
+plain bf16 path as in K6.
+
 K4/K5: fp32 max |d| <= 1e-4 against the plain pair; bf16 errors against
 the fp32 plain result within 1.5x the plain bf16 version's (plus 1e-6 for
 the outputs bf16 rounds to the same value).  K4 and K5 have two routes:
@@ -29,8 +39,10 @@ sm90 tests force cluster sizes 1 to 8 and cover channels that straddle a
 import pytest
 import torch
 
+from text_to_video_finetuning_tpu_torch.ops import attention as attn
 from text_to_video_finetuning_tpu_torch.ops import flash_attention as fa
 from text_to_video_finetuning_tpu_torch.ops import groupnorm as gn
+from text_to_video_finetuning_tpu_torch.ops import short_attention as sa
 
 pytestmark = pytest.mark.gpu
 
@@ -698,3 +710,98 @@ def test_sm90_groupnorm_plans_fit_the_card(cuda):
             for dtype in (torch.bfloat16, torch.float32):
                 plan = gn.gn_plan(kind, shape, 32, dtype)
                 assert gn.max_active_clusters(kind, plan, dtype) >= 1
+
+
+# K6: (label, batch, q_len, kv_len, heads) at head_dim 64.  The serving
+# cell's shape classes (ms-1.7b at 256x256x16, batch cut from 8192 / 2048 /
+# 512 / 128), the 576x320 model's (180 and 45 tokens, 720 queries over 77
+# keys, 24 frames) and ragged ones (queries not a multiple of 16, one key,
+# the 256-key edge)
+SHORT_SHAPES = [
+    ("temporal_l0", 256, 16, 16, 5), ("temporal_l1", 64, 16, 16, 10),
+    ("temporal_in", 256, 16, 16, 8), ("mid_16", 8, 16, 16, 20),
+    ("self_256", 4, 256, 256, 10), ("self_64", 8, 64, 64, 20),
+    ("cross_1024", 4, 1024, 77, 5), ("cross_256", 4, 256, 77, 10),
+    ("cross_64", 8, 64, 77, 20), ("cross_16", 8, 16, 77, 20),
+    ("zs_self_180", 4, 180, 180, 10), ("zs_self_45", 8, 45, 45, 20),
+    ("zs_cross_720", 2, 720, 77, 5), ("zs_temporal_24", 64, 24, 24, 5),
+    ("ragged", 3, 37, 1, 3), ("keys_256", 2, 300, 256, 2)]
+SHORT_TOL = 2e-2
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("label,b,sq,sk,h", SHORT_SHAPES,
+                         ids=[s[0] for s in SHORT_SHAPES])
+def test_short_kernel_matches_plain(cuda, label, b, sq, sk, h, dtype):
+    q, k, v = (t.to(dtype) for t in _qkv(cuda, b, sq, sk, h, 64))
+    ref = attn.plain_attention(q.float(), k.float(), v.float(), 0.125)
+    before = sa.launch_count
+    o = sa.short_attention_cuda(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert sa.launch_count == before + 1
+    assert o.dtype == dtype and o.shape == q.shape and o.is_contiguous()
+    assert (o.float() - ref).abs().max().item() < SHORT_TOL
+    plain = attn.plain_attention(q, k, v, 0.125).float()
+    assert (o.float() - plain).abs().max().item() < SHORT_TOL
+    twin = sa.short_attention_reference(q, k, v, 0.125).float()
+    assert (o.float() - twin).abs().max().item() < SHORT_TOL
+
+
+def test_short_kernel_reads_strided_bshd(cuda):
+    """q, k, v as views of one packed (B, S, 3, H, D) tensor and of wider
+    rows (no copy), 77 keys padded to 80."""
+    qkv = torch.randn(6, 77, 3, 4, 64, device="cuda",
+                      generator=cuda).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    o = sa.short_attention_cuda(q, k, v, 0.125)
+    ref = attn.plain_attention(q.float(), k.float(), v.float(), 0.125)
+    assert (o.float() - ref).abs().max().item() < SHORT_TOL
+    wide = torch.randn(6, 200, 5 * 64 + 64, device="cuda",
+                       generator=cuda).half()
+    q = wide[:, :, 64:].unflatten(-1, (5, 64))
+    k = wide[:, :77, :320].unflatten(-1, (5, 64))
+    o = sa.short_attention_cuda(q, k, k, 0.125)
+    ref = attn.plain_attention(q.float(), k.float(), k.float(), 0.125)
+    assert (o.float() - ref).abs().max().item() < SHORT_TOL
+
+
+def test_short_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = (t.bfloat16() for t in _qkv(cuda, 2, 16, 16, 3, 64))
+    before = sa.launch_count
+    with pytest.raises(TypeError):
+        sa.short_attention_cuda(q.float(), k.float(), v.float(), 0.1)
+    with pytest.raises(ValueError, match="1..256 keys"):
+        long = torch.zeros(2, 257, 3, 64, device="cuda",
+                           dtype=torch.bfloat16)
+        sa.short_attention_cuda(q, long, long, 0.1)
+    base = torch.zeros(2, 16, 3 * 64 + 4, device="cuda",
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        sa.short_attention_cuda(base[..., :192].unflatten(-1, (3, 64)), k,
+                                v, 0.1)
+    assert sa.launch_count == before
+
+
+def test_auto_dispatch_takes_k6_without_grad(cuda):
+    """`auto` on the card: a call autograd would not record takes K6 (a
+    call with 1,024 queries over 77 keys too); a recorded one takes plain,
+    and its gradient flows; 1,024 x 1,024 still takes K1."""
+    q, k, v = (t.bfloat16() for t in _qkv(cuda, 4, 16, 16, 5, 64))
+    counts = dict(attn.path_counts)
+    launches = (sa.launch_count, fa.launch_count)
+    with torch.inference_mode():
+        o = attn.dot_product_attention(q, k, v)
+        qc, kc = (t.bfloat16() for t in _qkv(cuda, 2, 1024, 77, 5, 64)[:2])
+        attn.dot_product_attention(qc, kc, kc)
+        ql = _qkv(cuda, 1, 1024, 1024, 5, 64)[0].bfloat16()
+        attn.dot_product_attention(ql, ql, ql)
+    qg = q.clone().requires_grad_()
+    og = attn.dot_product_attention(qg, k, v)
+    og.float().sum().backward()
+    assert qg.grad is not None
+    assert (og.detach().float() - o.float()).abs().max().item() < SHORT_TOL
+    assert {p: attn.path_counts[p] - counts[p] for p in counts} == {
+        "short": 2, "plain": 1, "flash": 1}
+    assert (sa.launch_count, fa.launch_count) == (launches[0] + 2,
+                                                   launches[1] + 1)

@@ -13,9 +13,14 @@
 * the CUDA wrappers refuse CPU tensors;
 * the route rule of K1, K2 and K3 (`flash_route`, explicit routes: the
   wrappers refuse a bad one before they look at the device) and the sm90
-  route's stride check, which need no card.
+  route's stride check, which need no card;
+* K6, the short-key kernel (`ops/short_attention.py`): the `auto` rule
+  that picks it (`auto_path`, the CUDA choice made with no card), the path
+  counters and the server's /stats counters of them, its plain twin
+  against `plain_attention` at the serving cell's shape classes, the key
+  buckets, and the wrapper's refusals.
 
-The kernel itself runs only on a card: tests/test_torch_kernels.py.
+The kernels themselves run only on a card: tests/test_torch_kernels.py.
 """
 
 import jax.numpy as jnp
@@ -28,6 +33,8 @@ from text_to_video_finetuning_tpu.ops.flash_attention import (_flash_bwd,
                                                               _flash_fwd)
 from text_to_video_finetuning_tpu_torch.ops import attention as port_attn
 from text_to_video_finetuning_tpu_torch.ops import flash_attention as fa
+from text_to_video_finetuning_tpu_torch.ops import kernel_build
+from text_to_video_finetuning_tpu_torch.ops import short_attention as sa
 
 torch.set_num_threads(2)
 
@@ -224,3 +231,203 @@ def test_sm90_stride_check():
         fa._tma_strides(["q"], base[..., :256].unflatten(-1, (4, 64)))
     with pytest.raises(ValueError, match="16-byte"):
         fa._tma_strides(["k"], base[..., 4:260].unflatten(-1, (4, 64)))
+
+
+# -- K6: the short-key kernel's rule, counters, plain twin and wrapper -------
+
+GRAD_MODES = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
+              "inference_mode": torch.inference_mode}
+
+
+@pytest.mark.parametrize("kv", [16, 77, 256, 257])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("mode", list(GRAD_MODES))
+def test_auto_path_below_the_flash_threshold(mode, dtype, d, kv):
+    """Below 1,024 tokens a CUDA call takes K6 when it is bf16 / fp16 at
+    head_dim 64 with <= 256 keys and autograd does not record it (no_grad,
+    inference_mode); everything else, and every CPU call, takes plain."""
+    q = torch.zeros(2, 16, 1, d, dtype=dtype, requires_grad=True)
+    k = torch.zeros(2, kv, 1, d, dtype=dtype, requires_grad=True)
+    with GRAD_MODES[mode]():
+        records = port_attn.needs_grad(q, k, k)
+    assert records == (mode == "grad")
+    short = (mode != "grad" and dtype != torch.float32 and d == 64
+             and kv <= 256)
+    assert port_attn.auto_path("cuda", dtype, d, 16, kv, records) == (
+        "short" if short else "plain")
+    assert port_attn.auto_path("cpu", dtype, d, 16, kv, records) == "plain"
+
+
+@pytest.mark.parametrize("q_len,kv,want", [
+    (1024, 1024, "flash"), (2880, 2880, "flash"), (1024, 77, "short"),
+    (1023, 1024, "plain"), (64, 1024, "plain")],
+    ids=["self_1024", "self_2880", "cross_1024", "q_1023", "kv_1024"])
+@pytest.mark.parametrize("records", [False, True], ids=["nograd", "grad"])
+def test_auto_path_flash_threshold(q_len, kv, want, records):
+    """q and kv both >= 1,024 take K1 on any device, dtype and grad mode;
+    1,024 queries over 77 keys are below the threshold (K6 without a
+    gradient, else plain); 1,024 keys take neither kernel."""
+    if want == "short" and records:
+        want = "plain"
+    for device in ("cuda", "cpu"):
+        got = port_attn.auto_path(device, torch.bfloat16, 64, q_len, kv,
+                                  records)
+        assert got == (want if device == "cuda" or want == "flash"
+                       else "plain")
+
+
+def test_needs_grad_without_requires_grad():
+    """Grad mode on, but no input requires a gradient: nothing is
+    recorded, so such a call may take K6 (a frozen layer ahead of every
+    trainable one)."""
+    q = torch.zeros(1, 16, 1, 64)
+    with torch.enable_grad():
+        assert not port_attn.needs_grad(q, q, q)
+        assert port_attn.needs_grad(q, q.requires_grad_(), q)
+
+
+def test_path_counters(monkeypatch):
+    """`path_counts` counts each call by the path it took; a "short" call
+    reaches `short_attention_cuda` (here its plain twin stands in) and
+    nothing else."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in qkv(2, 16, 16, 5, 64))
+    before = dict(port_attn.path_counts)
+    launches = sa.launch_count
+    port_attn.dot_product_attention(q, k, v)                 # CPU: plain
+    port_attn.dot_product_attention(q, k, v, backend="flash")
+    port_attn.dot_product_attention(q, k, v, backend="plain")
+    monkeypatch.setattr(port_attn, "auto_path", lambda *a: "short")
+    monkeypatch.setattr(sa, "short_attention_cuda",
+                        sa.short_attention_reference)
+    out = port_attn.dot_product_attention(q, k, v)
+    torch.testing.assert_close(
+        out, sa.short_attention_reference(q, k, v, 0.125))
+    assert {p: port_attn.path_counts[p] - before[p]
+            for p in before} == {"plain": 2, "flash": 1, "short": 1}
+    assert sa.launch_count == launches
+
+
+def test_worker_stats_count_attention_paths():
+    """/stats adds up each batch's attention calls by path
+    (`attention_plain_calls`, `attention_short_calls`); warm-up calls made
+    outside a batch are not counted."""
+    from text_to_video_finetuning_tpu_torch.serving.server import (
+        BatchingWorker, GenerationRequest)
+
+    q, k, v = (torch.from_numpy(x) for x in qkv(1, 16, 16, 1, 64))
+
+    def run_batch(requests):
+        for _ in range(3):
+            port_attn.dot_product_attention(q, k, v)
+        port_attn.path_counts["short"] += 2    # as K6's calls would
+        return [None] * len(requests)
+
+    worker = BatchingWorker(run_batch, max_batch=1)
+    try:
+        worker.call(lambda: port_attn.dot_product_attention(q, k, v))
+        for _ in range(2):
+            pending = worker.submit(GenerationRequest(prompt="a cat"))
+            assert pending.done.wait(timeout=30)
+        stats = worker.snapshot()
+    finally:
+        worker.shutdown()
+    assert stats["batches"] == 2
+    assert (stats["attention_plain_calls"],
+            stats["attention_short_calls"]) == (6, 4)
+
+
+# the short attentions of one UNet call in the serving cell (ms-1.7b,
+# 256x256x16, batch 4 x CFG 2), as (label, batch, q_len, kv_len, heads):
+# temporal (16 frames; level 0-2, transformer_in, the mid block's and its
+# 16-token spatial self-attention), spatial self at 256 and 64 tokens,
+# cross over 77 text tokens at 1,024 / 256 / 64 / 16 queries
+C4_SHAPES = [
+    ("temporal_l0", 8192, 16, 16, 5), ("temporal_l1", 2048, 16, 16, 10),
+    ("temporal_l2", 512, 16, 16, 20), ("temporal_in", 8192, 16, 16, 8),
+    ("mid_16", 128, 16, 16, 20), ("self_256", 128, 256, 256, 10),
+    ("self_64", 128, 64, 64, 20), ("cross_1024", 128, 1024, 77, 5),
+    ("cross_256", 128, 256, 77, 10), ("cross_64", 128, 64, 77, 20),
+    ("cross_16", 128, 16, 77, 20)]
+
+
+@pytest.mark.parametrize("label,b,sq,sk,h", C4_SHAPES,
+                         ids=[s[0] for s in C4_SHAPES])
+def test_short_reference_matches_plain(label, b, sq, sk, h):
+    """K6's plain twin (keys padded to its bucket and masked, exp2 on the
+    logits times log2(e)) computes `plain_attention` at each shape class of
+    the serving cell, the batch cut to 2: fp32 to rounding, and in bf16
+    within one bf16 unit of the output's scale (the weights round to bf16
+    after sums taken in another order)."""
+    q, k, v = (torch.from_numpy(x) for x in qkv(2, sq, sk, h, 64))
+    scale = 64 ** -0.5
+    torch.testing.assert_close(sa.short_attention_reference(q, k, v, scale),
+                               port_attn.plain_attention(q, k, v, scale),
+                               atol=2e-6, rtol=1e-5)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = sa.short_attention_reference(q, k, v, scale)
+    want = port_attn.plain_attention(q, k, v, scale)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -7
+
+
+@pytest.mark.parametrize("kv,padded", [(1, 16), (16, 16), (17, 32),
+                                       (45, 48), (77, 80), (100, 128),
+                                       (180, 192), (200, 256), (256, 256)])
+def test_short_key_buckets(kv, padded):
+    """The keys K6 holds: the smallest compiled bucket of 16-row tiles;
+    the CUDA source compiles the same buckets as `KEY_BUCKETS`."""
+    assert sa.padded_keys(kv) == padded
+    with open(f"{kernel_build.CSRC_DIR}/short_attn_fwd_sm90.cu") as f:
+        source = f.read()
+    buckets = source.split("kBuckets[] = {", 1)[1].split("}", 1)[0]
+    assert tuple(int(n) for n in buckets.split(",")) == sa.KEY_BUCKETS
+    for nk in sa.KEY_BUCKETS:
+        assert f"case {nk}: return launch<{nk}, T>" in source
+
+
+def _refused(q, k, v, error, match):
+    before = sa.launch_count
+    with pytest.raises(error, match=match):
+        sa.short_attention_cuda(q, k, v, 0.125)
+    assert sa.launch_count == before
+
+
+def test_short_wrapper_refuses_cpu_tensors():
+    q = torch.zeros(2, 16, 3, 64, dtype=torch.bfloat16)
+    _refused(q, q, q, ValueError, "CUDA tensors")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_short_wrapper_refuses_dtype(dtype):
+    q = torch.zeros(2, 16, 3, 64, dtype=dtype)
+    _refused(q, q, q, TypeError, "dtype")
+    b = q.bfloat16()
+    _refused(b, b.half(), b, TypeError, "dtypes differ")
+
+
+@pytest.mark.parametrize("d", [32, 80, 128])
+def test_short_wrapper_refuses_head_dim(d):
+    q = torch.zeros(2, 16, 3, d, dtype=torch.bfloat16)
+    _refused(q, q, q, ValueError, "head_dim 64")
+
+
+@pytest.mark.parametrize("kv", [257, 1024])
+def test_short_wrapper_refuses_long_keys(kv):
+    q = torch.zeros(2, 16, 3, 64, dtype=torch.bfloat16)
+    k = torch.zeros(2, kv, 3, 64, dtype=torch.bfloat16)
+    _refused(q, k, k, ValueError, "1..256 keys")
+
+
+def test_short_wrapper_refuses_misaligned_strides():
+    """q, k, v are read 16 bytes at a time: a base address or a (batch,
+    seq, head) stride that is not a 16-byte multiple raises."""
+    base = torch.zeros(2, 16, 3 * 64 + 4, dtype=torch.bfloat16)
+    q = base[..., :192].unflatten(-1, (3, 64))
+    _refused(q, q, q, ValueError, "16-byte")
+    off = base[..., 4:196].unflatten(-1, (3, 64))
+    ok = torch.zeros(2, 16, 3, 64, dtype=torch.bfloat16)
+    _refused(ok, off, ok, ValueError, "16-byte")

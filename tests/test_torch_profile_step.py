@@ -1,8 +1,9 @@
 """`training/profile_step.py` files each kernel of the port under its
 family, on the CPU: every `__global__` kernel of `csrc/*.cu` named flash_*
-lands in "flash K1/K2/K3" (both routes of K1, K2 and K3) and every gn_silu_*
-kernel in "GroupNorm K4/K5", by its bare name and as the profiler prints it
-(namespace, template arguments, parameter list)."""
+lands in "flash K1/K2/K3" (both routes of K1, K2 and K3), every gn_silu_*
+kernel in "GroupNorm K4/K5" and K6 (t2v_short_attn_*) in "short attention
+K6", by its bare name and as the profiler prints it (namespace, template
+arguments, parameter list)."""
 
 import glob
 import os
@@ -27,7 +28,8 @@ def _kernel_names():
 
 
 KERNELS = _kernel_names()
-FAMILY_OF = {"flash_": "flash K1/K2/K3", "gn_silu_": "GroupNorm K4/K5"}
+FAMILY_OF = {"flash_": "flash K1/K2/K3", "gn_silu_": "GroupNorm K4/K5",
+             "t2v_short_attn_": "short attention K6"}
 
 
 def test_every_kernel_source_is_parsed():
@@ -35,7 +37,8 @@ def test_every_kernel_source_is_parsed():
             "flash_fwd_sm90_kernel", "flash_dkv_sm90_kernel",
             "flash_dq_sm90_kernel", "gn_silu_fwd_kernel",
             "gn_silu_bwd_kernel", "gn_silu_fwd_sm90_kernel",
-            "gn_silu_bwd_sm90_kernel"} <= set(KERNELS)
+            "gn_silu_bwd_sm90_kernel", "t2v_short_attn_fwd_sm90"} \
+        <= set(KERNELS)
     assert all(name.startswith(tuple(FAMILY_OF)) for name in KERNELS)
 
 

@@ -7,6 +7,14 @@ Two shape regimes in this model:
 * temporal attention: seq = F frames (4-24), batch = B*H*W.
 
 All tensors here are (batch, seq, heads, head_dim) ("BSHD").
+
+The `auto` backend picks one of three paths (`auto_path`): the flash
+kernel K1 when q and kv are both >= 1024 tokens; below that, the short-key
+kernel K6 (`ops/short_attention.py`) for CUDA tensors in bf16 / fp16 at
+head_dim 64 with <= 256 keys when no gradient is needed -- every such
+attention of inference; the plain version for the rest (the CPU, fp32,
+longer keys, and every call autograd records, so training keeps it).
+`path_counts` counts the calls by the path they took.
 """
 
 from __future__ import annotations
@@ -16,13 +24,20 @@ from typing import Optional
 
 import torch
 
+from . import short_attention
 from .flash_attention import flash_attention
 
 
 class AttentionBackend(str, enum.Enum):
     PLAIN = "plain"    # einsum softmax einsum in PyTorch
     FLASH = "flash"    # the hand-written flash-attention kernel
-    AUTO = "auto"      # flash for long sequences, plain for short ones
+    AUTO = "auto"      # flash for long sequences, K6 or plain for short ones
+
+
+FLASH_MIN_TOKENS = 1024
+# calls of dot_product_attention by the path they took (plain counts;
+# callers reset them by assignment)
+path_counts = {"plain": 0, "flash": 0, "short": 0}
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -36,23 +51,43 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def auto_path(device_type: str, dtype: torch.dtype, head_dim: int,
+              q_len: int, kv_len: int, records_grad: bool) -> str:
+    """The path of an `auto` call: "flash" when q and kv are both >= 1024
+    tokens (the JAX package's rule), else "short" (K6) for a CUDA call that
+    K6 takes and no gradient needs, else "plain"."""
+    if q_len >= FLASH_MIN_TOKENS and kv_len >= FLASH_MIN_TOKENS:
+        return "flash"
+    if (device_type == "cuda" and not records_grad
+            and short_attention.takes(dtype, head_dim, kv_len)):
+        return "short"
+    return "plain"
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on `tensors`: grad mode is on and
+    one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None,
                           backend: str = AttentionBackend.AUTO
                           ) -> torch.Tensor:
-    """Scaled-dot-product attention with backend dispatch.
-
-    `auto` takes the flash kernel when q_seq >= 1024 and kv_seq >= 1024 (the
-    JAX package's rule, kept as it is until it is re-derived for the H100).
-    The flash backend chooses by device: CPU tensors take the plain version,
-    CUDA tensors the kernel."""
+    """Scaled-dot-product attention with backend dispatch (`auto_path` for
+    `auto`).  The flash backend chooses by device: CPU tensors take the
+    plain version, CUDA tensors the kernel."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     backend = AttentionBackend(backend)
     if backend == AttentionBackend.AUTO:
-        backend = (AttentionBackend.FLASH
-                   if q.shape[1] >= 1024 and k.shape[1] >= 1024
-                   else AttentionBackend.PLAIN)
-    if backend == AttentionBackend.FLASH:
+        path = auto_path(q.device.type, q.dtype, q.shape[-1], q.shape[1],
+                         k.shape[1], needs_grad(q, k, v))
+    else:
+        path = backend.value
+    path_counts[path] += 1
+    if path == "flash":
         return flash_attention(q, k, v, scale)
+    if path == "short":
+        return short_attention.short_attention_cuda(q, k, v, scale)
     return plain_attention(q, k, v, scale)

@@ -252,11 +252,13 @@ def _pick_route(route: Optional[str], q: torch.Tensor) -> str:
     return route
 
 
-def _tma_strides(names, *tensors) -> list:
-    """(batch, seq, head) strides of each BSHD tensor as its TMA map reads
-    them: a dimension of size 1 is never stepped, so its stride is replaced
-    by an aligned one.  Raises ValueError unless every base address and
-    stride is 16-byte aligned, as TMA requires."""
+def _tma_strides(names, *tensors,
+                 what: str = "flash attention sm90 route") -> list:
+    """(batch, seq, head) strides of each BSHD tensor as its TMA map (or a
+    16-byte vector load, K6) reads them: a dimension of size 1 is never
+    stepped, so its stride is replaced by an aligned one.  Raises ValueError
+    unless every base address and stride is 16-byte aligned, as TMA
+    requires."""
     vals = []
     for name, t in zip(names, tensors):
         b, s, h, d = t.shape
@@ -267,9 +269,9 @@ def _tma_strides(names, *tensors) -> list:
         item = t.element_size()
         if t.data_ptr() % 16 or any(x * item % 16 for x in (sb, ss, sh)):
             raise ValueError(
-                f"flash attention sm90 route: {name} must have a 16-byte "
-                f"aligned base address and (batch, seq, head) strides, got "
-                f"strides {t.stride()} at address {t.data_ptr():#x}")
+                f"{what}: {name} must have a 16-byte aligned base address "
+                f"and (batch, seq, head) strides, got strides {t.stride()} "
+                f"at address {t.data_ptr():#x}")
         vals += [sb, ss, sh]
     return vals
 

@@ -41,7 +41,9 @@ the ids of its requests), around `generate`'s stages and the post-process
 /stats adds them up: `queue_wait_seconds`, `generate_seconds` (the
 batches), the batches' stages on the card (`STAGES`: `encode_seconds`,
 `denoise_seconds`, `decode_seconds`, `postprocess_seconds`, on the host
-off it) and `respond_seconds`.
+off it) and `respond_seconds`; and the attention calls of the batches by
+path (`ATTENTION_PATHS`: `attention_plain_calls`, `attention_short_calls`,
+the K6 kernel's).
 
 On a mesh (`mesh`, one process per rank under torchrun) rank 0 runs the
 HTTP front end and the worker; before each batch, warm-ups included, it
@@ -79,6 +81,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops import attention
 from ..parallel import comm
 from ..utils import profiling
 from ..utils.profiling import record, span
@@ -90,6 +93,10 @@ STAGES = {"pipeline.encode": "encode_seconds",
           "pipeline.denoise": "denoise_seconds",
           "pipeline.decode": "decode_seconds",
           "serve.postprocess": "postprocess_seconds"}
+# the /stats counter of each attention path (ops/attention.py::path_counts)
+# a batch's run took
+ATTENTION_PATHS = {"plain": "attention_plain_calls",
+                   "short": "attention_short_calls"}
 
 
 @dataclass
@@ -193,7 +200,8 @@ class BatchingWorker:
                       "rejected": 0, "max_batch_seen": 0,
                       "generate_seconds": 0.0, "queue_wait_seconds": 0.0,
                       "respond_seconds": 0.0,
-                      **dict.fromkeys(STAGES.values(), 0.0)}
+                      **dict.fromkeys(STAGES.values(), 0.0),
+                      **dict.fromkeys(ATTENTION_PATHS.values(), 0)}
         self._ids = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="t2v-batching-worker")
@@ -354,6 +362,7 @@ class BatchingWorker:
                   requests=[p.id for p in batch]) as run:
             waited = sum(record("serve.queue", p.submitted, run.start,
                                 request=p.id).seconds for p in batch)
+            calls = dict(attention.path_counts)
             try:
                 results = self.run_batch([p.request for p in batch])
                 if len(results) != len(batch):
@@ -365,6 +374,8 @@ class BatchingWorker:
             except Exception as exc:  # noqa: BLE001 -- reported per request
                 traceback.print_exc()
                 error = f"{type(exc).__name__}: {exc}"
+            paths = {key: attention.path_counts[path] - calls[path]
+                     for path, key in ATTENTION_PATHS.items()}
         # the post-process's copy to the host has waited for the stages
         stages = {} if error else {
             STAGES[s.name]: s.settled_seconds()
@@ -378,6 +389,8 @@ class BatchingWorker:
             self.stats["queue_wait_seconds"] += waited
             for key, seconds in stages.items():
                 self.stats[key] += seconds
+            for key, n in paths.items():
+                self.stats[key] += n
             if error:
                 self.stats["errors"] += len(batch)
             self._inflight -= len(batch)

@@ -47,6 +47,7 @@ import torch
 # "convert".
 FAMILIES = [
     ("flash K1/K2/K3", r"flash_(fwd|bwd|dkv|dq)_"),
+    ("short attention K6", r"short_attn_fwd"),
     ("GroupNorm K4/K5", r"gn_silu_(fwd|bwd)"),
     ("normalization", r"RowwiseMoments|ComputeFusedParams|"
                       r"ComputeInternalGradients|ComputeBackwardFusedParams|"
