@@ -3,8 +3,12 @@ from the seed, and the pipeline directory the program loads.
 
 A configuration file (`configs/<name>.json`) holds the diffusers
 `config.json` of each model (`unet`, `text_encoder`, `vae`) and the
-scheduler's, as published.  The weights are the benchmark's input: one
-normal draw per model from a `torch.Generator` on the device, in bf16,
+scheduler's, as published.  Each model's config names its class
+(diffusers' `_class_name`, transformers' `architectures[0]`), and the
+reference module is built by that class's file,
+`reference/classes/<ClassName>.py::build(published)`, found by name: a
+new class is a new file.  The weights are the benchmark's input:
+one normal draw per model from a `torch.Generator` on the device, in bf16,
 sliced into the state dict's tensors and scaled by kind (a matrix or
 kernel by 1/sqrt(fan_in), a norm's scale around 1, a bias small).  Both
 sides take the same tensors: the program through its own loader, to which
@@ -16,28 +20,51 @@ reference as they are.
 from __future__ import annotations
 
 import contextlib
+import functools
+import importlib.util
 import json
 import os
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
-
-from .reference.clip import CLIPConfig, CLIPTextModel
-from .reference.unet import UNet3DConditionModel, UNetConfig
-from .reference.vae import AutoencoderKL, VAEConfig
 
 KINDS = ("unet", "text_encoder", "vae")
 # each model's draw starts from the seed plus its offset
 _OFFSETS = {"unet": 0, "text_encoder": 1, "vae": 2}
 CHAR_VOCAB = [chr(c) for c in range(32, 127)]
+CLASSES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "reference", "classes")
+
+
+def class_name(published: dict) -> str:
+    """The class a published model config names."""
+    name = published.get("_class_name") or \
+        (published.get("architectures") or [None])[0]
+    if not isinstance(name, str) or not name.isidentifier():
+        raise ValueError(f"a published config names no class "
+                         f"(`_class_name` or `architectures`): {name!r}")
+    return name
+
+
+@functools.lru_cache(maxsize=None)
+def _build_function(folder: str, name: str
+                    ) -> Callable[[dict], torch.nn.Module]:
+    path = os.path.join(folder, f"{name}.py")
+    if not os.path.isfile(path):
+        raise LookupError(f"no reference class file for the class "
+                          f"{name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(
+        f"t2v_bench_class_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.build
 
 
 def reference_model(config: dict, kind: str) -> torch.nn.Module:
-    if kind == "unet":
-        return UNet3DConditionModel(UNetConfig.from_dict(config["unet"]))
-    if kind == "text_encoder":
-        return CLIPTextModel(CLIPConfig.from_dict(config["text_encoder"]))
-    return AutoencoderKL(VAEConfig.from_dict(config["vae"]))
+    """The reference module of `kind`, built by `build` of the file of
+    the class its published config names."""
+    published = config[kind]
+    return _build_function(CLASSES, class_name(published))(published)
 
 
 def _aligned(n: int) -> int:

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import published
 from .layers import Embedding, LayerNorm, Linear, Module, attention
 
 
@@ -26,10 +27,23 @@ class CLIPConfig:
     hidden_act: str = "gelu"
     layer_norm_eps: float = 1e-5
 
+    # the pooled output's token ids and the projection are not computed:
+    # the UNet reads the last hidden state
+    IGNORED = ("_name_or_path", "model_type", "torch_dtype",
+               "transformers_version", "projection_dim", "initializer_factor",
+               "initializer_range", "bos_token_id", "eos_token_id",
+               "pad_token_id")
+    FIXED = {"architectures": ["CLIPTextModel"], "attention_dropout": 0.0,
+             "dropout": 0.0}
+
+    def __post_init__(self):
+        if self.hidden_act not in ("gelu", "quick_gelu"):
+            raise ValueError(f"CLIPConfig: hidden_act {self.hidden_act!r}: "
+                             f"the reference implements gelu and quick_gelu")
+
     @classmethod
     def from_dict(cls, d):
-        return cls(**{k: v for k, v in d.items()
-                      if k in {f.name for f in dataclasses.fields(cls)}})
+        return published.read(cls, d)
 
 
 class CLIPAttention(Module):

@@ -54,6 +54,16 @@ class Module(nn.Module):
         return fp8_round(x) if self.fp8 else x
 
 
+class Attention(Module):
+    """An attention module of a reference UNet, whatever its class:
+    `forward(x, context=None)`, x (batch, queries, width) and context
+    (batch, keys, width), None for self-attention, over `heads` heads of
+    `dim_head`.  `workload` counts the long calls of every subclass by
+    these declared sizes."""
+    heads: int
+    dim_head: int
+
+
 def set_fp8(model: nn.Module, on: bool) -> nn.Module:
     for m in model.modules():
         if isinstance(m, Module):

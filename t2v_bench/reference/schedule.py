@@ -1,6 +1,6 @@
 """The DDPM noise schedule and the DPM-Solver++ (2M) sampler, written from
 their papers (Ho et al. 2020; Lu et al. 2022, arXiv:2211.01095) with
-diffusers' conventions: scaled-linear betas, timesteps spaced by
+diffusers' conventions: linear or scaled-linear betas, timesteps spaced by
 `linspace(0, T - 1, n + 1)`, rounded, descending, last dropped; the final
 step lands on timestep 0's alpha and sigma."""
 
@@ -15,9 +15,14 @@ import torch
 def alphas_cumprod(cfg: dict) -> np.ndarray:
     n = cfg.get("num_train_timesteps", 1000)
     b0, b1 = cfg.get("beta_start", 0.00085), cfg.get("beta_end", 0.012)
-    if cfg.get("beta_schedule", "scaled_linear") != "scaled_linear":
-        raise ValueError("the reference implements scaled_linear betas")
-    betas = np.linspace(b0 ** 0.5, b1 ** 0.5, n, dtype=np.float64) ** 2
+    schedule = cfg.get("beta_schedule", "scaled_linear")
+    if schedule == "linear":
+        betas = np.linspace(b0, b1, n, dtype=np.float64)
+    elif schedule == "scaled_linear":
+        betas = np.linspace(b0 ** 0.5, b1 ** 0.5, n, dtype=np.float64) ** 2
+    else:
+        raise ValueError(f"beta_schedule {schedule!r}: the reference "
+                         f"implements linear and scaled_linear betas")
     return np.cumprod(1.0 - betas)
 
 

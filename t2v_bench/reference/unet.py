@@ -25,7 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv, GroupNorm, LayerNorm, Linear, Module, attention
+from . import published
+from .layers import Attention, Conv, GroupNorm, LayerNorm, Linear, attention
+
+DOWN_BLOCKS = ("CrossAttnDownBlock3D", "DownBlock3D")
+UP_BLOCKS = ("CrossAttnUpBlock3D", "UpBlock3D")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,11 +52,28 @@ class UNetConfig:
     cross_attention_dim: int = 1024
     attention_head_dim: int = 64
 
+    IGNORED = ("_diffusers_version", "_name_or_path")
+    FIXED = {"_class_name": "UNet3DConditionModel", "act_fn": "silu",
+             "flip_sin_to_cos": True, "freq_shift": 0,
+             "num_attention_heads": None, "time_cond_proj_dim": None}
+
+    def __post_init__(self):
+        n = len(self.block_out_channels)
+        for key, kinds in (("down_block_types", DOWN_BLOCKS),
+                           ("up_block_types", UP_BLOCKS)):
+            types = getattr(self, key)
+            if len(types) != n or not set(types) <= set(kinds):
+                raise ValueError(f"UNetConfig: {key} {types}: the "
+                                 f"reference builds {n} of {kinds}")
+        for c in self.block_out_channels:
+            if c % self.attention_head_dim:
+                raise ValueError(f"UNetConfig: attention_head_dim "
+                                 f"{self.attention_head_dim} does not "
+                                 f"divide {c} channels into heads")
+
     @classmethod
     def from_dict(cls, d):
-        d = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()
-             if k in {f.name for f in dataclasses.fields(cls)}}
-        return cls(**d)
+        return published.read(cls, d)
 
 
 class DropoutReplay:
@@ -103,7 +124,7 @@ class Placeholder(nn.Module):
         return h
 
 
-class CrossAttention(Module):
+class CrossAttention(Attention):
     def __init__(self, query_dim, heads, dim_head, cross_attention_dim=None):
         super().__init__()
         inner = heads * dim_head

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import published
 from .layers import Conv, GroupNorm, Linear, Module, attention
 from .unet import Downsample2D, ResnetBlock2D, Upsample2D
 
@@ -25,12 +26,30 @@ class VAEConfig:
     norm_num_groups: int = 32
     sample_size: int = 256
     scaling_factor: float = 0.18215
+    # as published, or empty: one block of the kind per level
+    down_block_types: Tuple[str, ...] = ()
+    up_block_types: Tuple[str, ...] = ()
+
+    # force_upcast: the pipeline's dtype for the decode; the reference is
+    # fp32
+    IGNORED = ("_diffusers_version", "_name_or_path", "force_upcast")
+    FIXED = {"_class_name": "AutoencoderKL", "act_fn": "silu",
+             "shift_factor": None, "latents_mean": None, "latents_std": None,
+             "use_quant_conv": True, "use_post_quant_conv": True,
+             "mid_block_add_attention": True}
+
+    def __post_init__(self):
+        n = len(self.block_out_channels)
+        for key, kind in (("down_block_types", "DownEncoderBlock2D"),
+                          ("up_block_types", "UpDecoderBlock2D")):
+            types = getattr(self, key)
+            if types and types != (kind,) * n:
+                raise ValueError(f"VAEConfig: {key} {types}: the reference "
+                                 f"builds {n} {kind}")
 
     @classmethod
     def from_dict(cls, d):
-        d = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()
-             if k in {f.name for f in dataclasses.fields(cls)}}
-        return cls(**d)
+        return published.read(cls, d)
 
 
 class VAEAttention(Module):

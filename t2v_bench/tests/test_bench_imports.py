@@ -35,11 +35,12 @@ def test_a_rehearsal_loads_no_jax(workload):
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    folder = os.path.join(spec.HERE, "reference")
-    for name in os.listdir(folder):
-        if not name.endswith(".py"):
-            continue
-        with open(os.path.join(folder, name)) as f:
+    paths = [os.path.join(d, name) for d, _, names in
+             os.walk(os.path.join(spec.HERE, "reference"))
+             for name in names if name.endswith(".py")]
+    assert any(os.sep + "classes" + os.sep in p for p in paths)
+    for path in paths:
+        with open(path) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

@@ -1,5 +1,6 @@
 """Tiny cells for CPU rehearsals: the real traffic files with the
-geometry cut down, and a micro configuration of every module type."""
+geometry cut down, and a micro configuration of every module type, each
+model naming its class as a published config does."""
 
 from __future__ import annotations
 
@@ -8,18 +9,21 @@ import copy
 from t2v_bench import spec
 
 TINY_CONFIG = {
-    "unet": {"sample_size": 8, "in_channels": 4, "out_channels": 4,
+    "unet": {"_class_name": "UNet3DConditionModel", "sample_size": 8,
+             "in_channels": 4, "out_channels": 4,
              "down_block_types": ["CrossAttnDownBlock3D", "DownBlock3D"],
              "up_block_types": ["UpBlock3D", "CrossAttnUpBlock3D"],
              "block_out_channels": [32, 32], "layers_per_block": 1,
              "downsample_padding": 1, "mid_block_scale_factor": 1,
              "norm_num_groups": 8, "norm_eps": 1e-5,
              "cross_attention_dim": 32, "attention_head_dim": 8},
-    "text_encoder": {"vocab_size": 256, "hidden_size": 32,
-                     "intermediate_size": 64, "num_hidden_layers": 2,
+    "text_encoder": {"architectures": ["CLIPTextModel"], "vocab_size": 256,
+                     "hidden_size": 32, "intermediate_size": 64,
+                     "num_hidden_layers": 2,
                      "num_attention_heads": 4, "max_position_embeddings": 77,
                      "hidden_act": "gelu", "layer_norm_eps": 1e-5},
-    "vae": {"in_channels": 3, "out_channels": 3, "latent_channels": 4,
+    "vae": {"_class_name": "AutoencoderKL", "in_channels": 3,
+            "out_channels": 3, "latent_channels": 4,
             "block_out_channels": [16, 16, 16, 16], "layers_per_block": 1,
             "norm_num_groups": 8, "sample_size": 32,
             "scaling_factor": 0.18215},

@@ -10,9 +10,10 @@ path's concatenated inputs included) and nothing is computed.
   and the empty one, the sampler's UNet calls at the CFG batch and the
   VAE decode of its frames.
 * The calls the roofline shares read: every GroupNorm (input shape, and
-  whether its backward runs) and every attention whose query and key
-  lengths both reach 1,024 tokens (the calls the program's flash kernels
-  take), as (batch, query length, key length, heads, head dim).
+  whether its backward runs) and every attention, of any class built on
+  `reference.layers.Attention`, whose query and key lengths both reach
+  1,024 tokens (the calls the program's flash kernels take), as (batch,
+  query length, key length, its declared heads, its declared head dim).
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from . import models
 from .reference import lora
-from .reference.layers import GroupNorm
-from .reference.unet import CrossAttention
+from .reference.layers import Attention, GroupNorm
 
 LONG = 1024
 
@@ -42,7 +42,7 @@ class _Calls:
             for sub in m.modules():
                 if isinstance(sub, GroupNorm):
                     self.handles.append(sub.register_forward_hook(self._norm))
-                elif isinstance(sub, CrossAttention):
+                elif isinstance(sub, Attention):
                     self.handles.append(sub.register_forward_hook(self._attn))
 
     def _norm(self, module, args, out):
