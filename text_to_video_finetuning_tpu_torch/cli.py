@@ -273,6 +273,8 @@ def merge_lora_main(argv: Optional[Sequence[str]] = None) -> str:
     handler = LoraHandler(version=args.version, use_unet_lora=True,
                           use_text_lora=True, unet_replace_modules=targets,
                           text_encoder_replace_modules=targets)
+    if args.kind == "unet":
+        ckpt.require_unet3d(os.path.join(args.model, "unet"), "LoRA merging")
     with torch.device("meta"):
         if args.kind == "unet":
             sites = handler.unet_sites(UNet3DConditionModel(

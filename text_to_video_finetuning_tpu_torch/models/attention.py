@@ -6,6 +6,8 @@ text_to_video_finetuning_tpu/models/attention.py).
 * `FeedForward` with GEGLU: value * gelu(gate), exact erf gelu.
 * `BasicTransformerBlock`: pre-LayerNorm; attn1 (self) -> attn2 (cross, or a
   second self-attention when `double_self_attention`) -> GEGLU FF; residual.
+  With `num_positional_embeddings` (a motion module's) it adds sinusoidal
+  positions to norm1's and norm2's outputs (`pos_embed`).
 
 Tensors are (batch, seq, channels).  Dropout layers sit where the diffusers
 state-dict indices need them, at rate 0 as the JAX UNet builds them.  Every
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import AttentionBackend, dot_product_attention
+from .embeddings import SinusoidalPositionalEmbedding
 from .lora_layers import LoraLinear
 from .remat import ATTN_TAG, DENSE_TAG, tagged
 
@@ -92,9 +95,13 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None,
-                 double_self_attention: bool = False):
+                 double_self_attention: bool = False,
+                 num_positional_embeddings: Optional[int] = None):
         super().__init__()
         self.double_self_attention = double_self_attention
+        self.pos_embed = (SinusoidalPositionalEmbedding(
+            dim, num_positional_embeddings)
+            if num_positional_embeddings else None)
         # registration order attn1, ff, attn2 (diffusers 0.15): modules()
         # order fixes the LoRA site order of cloneofsimo checkpoints
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -112,10 +119,14 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        hidden_states = self.attn1(self.norm1(hidden_states)) + hidden_states
+        hidden_states = self.attn1(self._positioned(
+            self.norm1(hidden_states))) + hidden_states
         if self.has_attn2:
             context = (None if self.double_self_attention
                        else encoder_hidden_states)
-            hidden_states = self.attn2(self.norm2(hidden_states),
-                                       context) + hidden_states
+            hidden_states = self.attn2(self._positioned(
+                self.norm2(hidden_states)), context) + hidden_states
         return self.ff(self.norm3(hidden_states)) + hidden_states
+
+    def _positioned(self, normed: torch.Tensor) -> torch.Tensor:
+        return normed if self.pos_embed is None else self.pos_embed(normed)

@@ -40,3 +40,41 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))
+
+
+def sinusoidal_positions(max_seq_length: int, dim: int) -> torch.Tensor:
+    """(max_seq_length, dim) fp32: pe[p, 2i] = sin(p * 10000^(-2i/dim)),
+    pe[p, 2i+1] = cos(p * 10000^(-2i/dim)) (diffusers'
+    `SinusoidalPositionalEmbedding`, AnimateDiff's `PositionalEncoding`)."""
+    position = torch.arange(max_seq_length, dtype=torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros(max_seq_length, dim)
+    pe[:, 0::2] = torch.sin(position * div)
+    pe[:, 1::2] = torch.cos(position * div)
+    return pe
+
+
+class SinusoidalPositionalEmbedding(nn.Module):
+    """Adds `pe[:F]` to a (N, F, dim) sequence.  `pe` is computed from the
+    formula and registered non-persistent, so no state dict carries it
+    (the checkpoint loader checks a stored one against the formula and
+    drops it); F above `max_seq_length` raises."""
+
+    def __init__(self, dim: int, max_seq_length: int = 32):
+        super().__init__()
+        self.dim, self.max_seq_length = dim, max_seq_length
+        self.register_buffer("pe", sinusoidal_positions(max_seq_length, dim),
+                             persistent=False)
+
+    def init_buffers(self):
+        """Recompute `pe` on the CPU (a module built on the meta device)."""
+        self.pe = sinusoidal_positions(self.max_seq_length, self.dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        frames = x.shape[1]
+        if frames > self.max_seq_length:
+            raise ValueError(f"{frames} frames: the motion module's "
+                             f"positions reach motion_max_seq_length = "
+                             f"{self.max_seq_length}")
+        return x + self.pe[:frames].to(x.dtype)

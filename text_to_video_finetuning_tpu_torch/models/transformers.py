@@ -1,12 +1,17 @@
 """Spatial and temporal transformer wrappers (port of
 text_to_video_finetuning_tpu/models/transformers.py).
 
-* `Transformer2DModel` (continuous input, use_linear_projection=True):
-  GroupNorm -> flatten HW -> Linear proj_in -> BasicTransformerBlock(s) with
-  text cross-attention -> Linear proj_out -> unflatten -> residual.
+* `Transformer2DModel` (continuous input): GroupNorm -> flatten HW ->
+  Linear proj_in -> BasicTransformerBlock(s) with text cross-attention ->
+  Linear proj_out -> unflatten -> residual (`use_linear_projection`, the
+  ModelScope UNet's form); with `use_linear_projection=False` (SD 1.5's)
+  proj_in / proj_out are 1x1 convolutions on the (B*F, C, H, W) tensor,
+  before the flatten and after the unflatten.
 * `TransformerTemporalModel`: attention over the frame axis with
   batch = B*H*W; its blocks use double self-attention (attn2 never sees
-  text states).
+  text states).  `num_positional_embeddings` adds sinusoidal frame
+  positions before both attentions (AnimateDiff's motion module); without
+  it, none.
 
 Layout: spatial tensors are (B*F, C, H, W), frames folded into the batch.
 Both GroupNorms use eps 1e-6.  `proj_in` / `proj_out` are `dense_out`
@@ -22,22 +27,29 @@ from torch import nn
 
 from ..parallel import sequence
 from .attention import BasicTransformerBlock
-from .lora_layers import LoraLinear
+from .lora_layers import LoraConv2d, LoraLinear
 from .remat import DENSE_TAG, tagged
 
 
 class Transformer2DModel(nn.Module):
     def __init__(self, num_attention_heads: int, attention_head_dim: int,
                  in_channels: int, cross_attention_dim: Optional[int] = None,
-                 norm_num_groups: int = 32):
+                 norm_num_groups: int = 32,
+                 use_linear_projection: bool = True):
         super().__init__()
         inner_dim = num_attention_heads * attention_head_dim
+        self.use_linear_projection = use_linear_projection
         self.norm = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-6)
-        self.proj_in = LoraLinear(in_channels, inner_dim)
+        if use_linear_projection:
+            self.proj_in = LoraLinear(in_channels, inner_dim)
+        else:
+            self.proj_in = LoraConv2d(in_channels, inner_dim, 1)
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
             inner_dim, num_attention_heads, attention_head_dim,
             cross_attention_dim=cross_attention_dim)])
-        self.proj_out = LoraLinear(inner_dim, in_channels)
+        self.proj_out = (LoraLinear(inner_dim, in_channels)
+                         if use_linear_projection
+                         else LoraConv2d(inner_dim, in_channels, 1))
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None
@@ -45,14 +57,23 @@ class Transformer2DModel(nn.Module):
         bf, channels, height, width = hidden_states.shape
         residual = hidden_states
         h = self.norm(hidden_states)
-        h = h.permute(0, 2, 3, 1).reshape(bf, height * width, channels)
-        with tagged(DENSE_TAG):
-            h = self.proj_in(h)
+        if not self.use_linear_projection:
+            with tagged(DENSE_TAG):
+                h = self.proj_in(h)
+        inner = h.shape[1]
+        h = h.permute(0, 2, 3, 1).reshape(bf, height * width, inner)
+        if self.use_linear_projection:
+            with tagged(DENSE_TAG):
+                h = self.proj_in(h)
         for block in self.transformer_blocks:
             h = block(h, encoder_hidden_states)
-        with tagged(DENSE_TAG):
-            h = self.proj_out(h)
-        h = h.reshape(bf, height, width, channels).permute(0, 3, 1, 2)
+        if self.use_linear_projection:
+            with tagged(DENSE_TAG):
+                h = self.proj_out(h)
+        h = h.reshape(bf, height, width, -1).permute(0, 3, 1, 2)
+        if not self.use_linear_projection:
+            with tagged(DENSE_TAG):
+                h = self.proj_out(h.contiguous())
         return h + residual
 
 
@@ -65,14 +86,16 @@ class TransformerTemporalModel(nn.Module):
     sequence.py)."""
 
     def __init__(self, num_attention_heads: int, attention_head_dim: int,
-                 in_channels: int, norm_num_groups: int = 32):
+                 in_channels: int, norm_num_groups: int = 32,
+                 num_positional_embeddings: Optional[int] = None):
         super().__init__()
         inner_dim = num_attention_heads * attention_head_dim
         self.norm = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-6)
         self.proj_in = LoraLinear(in_channels, inner_dim)
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
             inner_dim, num_attention_heads, attention_head_dim,
-            double_self_attention=True)])
+            double_self_attention=True,
+            num_positional_embeddings=num_positional_embeddings)])
         self.proj_out = LoraLinear(inner_dim, in_channels)
 
     def forward(self, hidden_states: torch.Tensor, num_frames: int = 1,

@@ -9,23 +9,25 @@ Two shape regimes in this model:
 All tensors here are (batch, seq, heads, head_dim) ("BSHD").
 
 The `auto` backend picks one of three paths (`auto_path`): the flash
-kernel K1 when q and kv are both >= 1024 tokens; below that, the short-key
+kernel K1 when q and kv are both >= 1024 tokens and the head fits it
+(head_dim <= `MAX_HEAD_DIM`); below that, the short-key
 kernel K6 (`ops/short_attention.py`) for CUDA tensors in bf16 / fp16 at
 head_dim 64 with <= 256 keys when no gradient is needed -- every such
 attention of inference; the plain version for the rest (the CPU, fp32,
-longer keys, and every call autograd records, so training keeps it).
-`path_counts` counts the calls by the path they took.
+longer keys, wider heads, and every call autograd records, so training
+keeps it).  `path_counts` counts the calls by the path they took,
+`head_dim_counts` by the path and the head_dim.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import short_attention
-from .flash_attention import flash_attention
+from .flash_attention import MAX_HEAD_DIM, flash_attention
 
 
 class AttentionBackend(str, enum.Enum):
@@ -38,6 +40,8 @@ FLASH_MIN_TOKENS = 1024
 # calls of dot_product_attention by the path they took (plain counts;
 # callers reset them by assignment)
 path_counts = {"plain": 0, "flash": 0, "short": 0}
+# the same calls by (path, head_dim) (plain counts, read as differences)
+head_dim_counts: Dict[Tuple[str, int], int] = {}
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,9 +58,11 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def auto_path(device_type: str, dtype: torch.dtype, head_dim: int,
               q_len: int, kv_len: int, records_grad: bool) -> str:
     """The path of an `auto` call: "flash" when q and kv are both >= 1024
-    tokens (the JAX package's rule), else "short" (K6) for a CUDA call that
-    K6 takes and no gradient needs, else "plain"."""
-    if q_len >= FLASH_MIN_TOKENS and kv_len >= FLASH_MIN_TOKENS:
+    tokens (the JAX package's rule) and K1 takes the head_dim, else
+    "short" (K6) for a CUDA call that K6 takes and no gradient needs, else
+    "plain"."""
+    if (q_len >= FLASH_MIN_TOKENS and kv_len >= FLASH_MIN_TOKENS
+            and head_dim <= MAX_HEAD_DIM):
         return "flash"
     if (device_type == "cuda" and not records_grad
             and short_attention.takes(dtype, head_dim, kv_len)):
@@ -86,6 +92,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         path = backend.value
     path_counts[path] += 1
+    key = (path, q.shape[-1])
+    head_dim_counts[key] = head_dim_counts.get(key, 0) + 1
     if path == "flash":
         return flash_attention(q, k, v, scale)
     if path == "short":

@@ -93,6 +93,11 @@ def initialize_pipeline(model: str, use_fused_attention: bool = True,
     inference.py:32): the LoRA folded first, then the UNet split over
     "tp" and sharded over "fsdp" (`TextToVideoSDPipeline.__post_init__`).
     """
+    unet_dir = os.path.join(model, "unet")
+    if mesh is not None:
+        ckpt.require_unet3d(unet_dir, "sampling on a mesh (--mesh)")
+    if lora_path:
+        ckpt.require_unet3d(unet_dir, "LoRA loading")
     device = torch.device(device)
     dtype = torch.bfloat16 if half else torch.float32
     load_dtype = torch.float32 if lora_path else dtype
@@ -103,7 +108,7 @@ def initialize_pipeline(model: str, use_fused_attention: bool = True,
     text_encoder = ckpt.load_text_encoder(
         os.path.join(model, "text_encoder"), device, load_dtype)
     vae = ckpt.load_vae(os.path.join(model, "vae"), device, dtype)
-    unet = ckpt.load_unet(os.path.join(model, "unet"), device, load_dtype)
+    unet = ckpt.load_unet(unet_dir, device, load_dtype)
     if lora_path:
         for kind, module in (("unet", unet), ("text_encoder", text_encoder)):
             f = LoraHandler.get_lora_file_path(lora_path, kind)

@@ -1,7 +1,8 @@
 """Text-to-video sampling pipeline (port of
 text_to_video_finetuning_tpu/pipelines/text_to_video.py).
 
-diffusers `TextToVideoSDPipeline` + DPM-Solver++: classifier-free guidance
+diffusers `TextToVideoSDPipeline` + DPM-Solver++ over either UNet class
+(ModelScope's UNet3D, AnimateDiff's motion UNet): classifier-free guidance
 with an empty-string negative prompt, the [uncond; cond] embedding order, a
 host loop over the solver's timesteps, chunked VAE decode and the standard
 latents -> uint8 video postprocess.  The JAX package's `lax.scan` sampler is
@@ -27,6 +28,7 @@ import torch
 
 from ..models.clip_text import CLIPTextModel
 from ..models.unet3d import UNet3DConditionModel
+from ..models.unet_motion import UNetMotionModel
 from ..models.vae import AutoencoderKL
 from ..parallel.comm import all_gather
 from ..parallel.mesh import axis_index, axis_size
@@ -48,7 +50,7 @@ class SamplerSplit(NamedTuple):
 
 @dataclasses.dataclass
 class TextToVideoSDPipeline:
-    unet: UNet3DConditionModel
+    unet: Union[UNet3DConditionModel, UNetMotionModel]
     vae: AutoencoderKL
     text_encoder: CLIPTextModel
     tokenizer: CLIPTokenizer

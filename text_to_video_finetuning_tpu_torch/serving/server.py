@@ -43,7 +43,8 @@ batches), the batches' stages on the card (`STAGES`: `encode_seconds`,
 `denoise_seconds`, `decode_seconds`, `postprocess_seconds`, on the host
 off it) and `respond_seconds`; and the attention calls of the batches by
 path (`ATTENTION_PATHS`: `attention_plain_calls`, `attention_short_calls`,
-the K6 kernel's).
+the K6 kernel's), and by path and head_dim (`attention_head_dim_calls`,
+{"plain/40": n, ...}, from `ops/attention.py::head_dim_counts`).
 
 On a mesh (`mesh`, one process per rank under torchrun) rank 0 runs the
 HTTP front end and the worker; before each batch, warm-ups included, it
@@ -201,7 +202,8 @@ class BatchingWorker:
                       "generate_seconds": 0.0, "queue_wait_seconds": 0.0,
                       "respond_seconds": 0.0,
                       **dict.fromkeys(STAGES.values(), 0.0),
-                      **dict.fromkeys(ATTENTION_PATHS.values(), 0)}
+                      **dict.fromkeys(ATTENTION_PATHS.values(), 0),
+                      "attention_head_dim_calls": {}}
         self._ids = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="t2v-batching-worker")
@@ -249,7 +251,9 @@ class BatchingWorker:
 
     def snapshot(self) -> dict:
         with self._lock:
-            return dict(self.stats, queue_depth=self._inflight)
+            return dict(self.stats, queue_depth=self._inflight,
+                        attention_head_dim_calls=dict(
+                            self.stats["attention_head_dim_calls"]))
 
     def begin_drain(self):
         """Stop accepting new submissions (see submit())."""
@@ -363,6 +367,7 @@ class BatchingWorker:
             waited = sum(record("serve.queue", p.submitted, run.start,
                                 request=p.id).seconds for p in batch)
             calls = dict(attention.path_counts)
+            dims = dict(attention.head_dim_counts)
             try:
                 results = self.run_batch([p.request for p in batch])
                 if len(results) != len(batch):
@@ -376,6 +381,9 @@ class BatchingWorker:
                 error = f"{type(exc).__name__}: {exc}"
             paths = {key: attention.path_counts[path] - calls[path]
                      for path, key in ATTENTION_PATHS.items()}
+            by_dim = {f"{path}/{d}": n - dims.get((path, d), 0)
+                      for (path, d), n in attention.head_dim_counts.items()
+                      if n != dims.get((path, d), 0)}
         # the post-process's copy to the host has waited for the stages
         stages = {} if error else {
             STAGES[s.name]: s.settled_seconds()
@@ -391,6 +399,9 @@ class BatchingWorker:
                 self.stats[key] += seconds
             for key, n in paths.items():
                 self.stats[key] += n
+            head_dims = self.stats["attention_head_dim_calls"]
+            for key, n in by_dim.items():
+                head_dims[key] = head_dims.get(key, 0) + n
             if error:
                 self.stats["errors"] += len(batch)
             self._inflight -= len(batch)

@@ -50,6 +50,12 @@ UNET_LORA_TARGETS = ("Transformer2DModel", "TransformerTemporalModel",
 STABLE_UNET_LORA_TARGETS = ("Transformer2DModel", "ResnetBlock2D")
 
 
+def _unet_class(config) -> str:
+    from ..models.unet_motion import UNetMotionConfig
+    return ("UNetMotionModel" if isinstance(config, UNetMotionConfig)
+            else type(config).__name__)
+
+
 def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
           remat_policy: str = "nothing", two_pass: bool = True,
           fused_groupnorm: bool = False, latent_hw=(32, 32), batch: int = 1,
@@ -65,6 +71,9 @@ def build(grad_ckpt: bool = True, backend: str = "auto", frames: int = 16,
           ) -> Tuple[object, TrainState, dict, TrainStepConfig]:
     """-> (train_step, state, batch, step config); `train_step(state,
     batch)` returns (state, metrics)."""
+    if not isinstance(unet_config, UNet3DConfig):
+        raise ValueError(f"build() trains a UNet3DConditionModel; got the "
+                         f"config of a {_unet_class(unet_config)}")
     device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):

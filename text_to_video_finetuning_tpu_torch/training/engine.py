@@ -505,6 +505,9 @@ def main(device: Union[str, torch.device] = "cuda",
     logging.basicConfig(level=logging.INFO)
     run_id = profiling.begin_run("train")
     check_supported(cfg)
+    if cfg.pretrained_model_path:
+        ckpt.require_unet3d(os.path.join(cfg.pretrained_model_path, "unet"),
+                            "training")
     device = resolve_device(device)
     rank, world, device = init_distributed(device, backend)
     try:

@@ -4,7 +4,12 @@ text_to_video_finetuning_tpu/utils/checkpoint.py).
 A pipeline directory holds unet/, vae/, text_encoder/, scheduler/ and
 tokenizer/ plus model_index.json, as `text-to-video-ms-1.7b` ships.  The
 port's modules carry the diffusers / transformers state-dict names, so a
-directory loads with `load_state_dict` and no key mapping.
+directory loads with `load_state_dict` and no key mapping.  The UNet's
+`_class_name` picks its class (`UNET_CLASSES`: ModelScope's
+`UNet3DConditionModel`, AnimateDiff's `UNetMotionModel`, whose motion
+modules' positions a diffusers file stores as `...pos_embed.pe`: such an
+entry is checked against the formula and dropped); the paths that take
+only the UNet3D call `require_unet3d`.
 
 Weights are read and written with this module's own safetensors codec (an
 8-byte little-endian header length, a JSON header, raw little-endian bytes;
@@ -31,7 +36,9 @@ import torch
 from torch import nn
 
 from ..models.clip_text import CLIPTextConfig, CLIPTextModel
+from ..models.embeddings import sinusoidal_positions
 from ..models.unet3d import UNet3DConditionModel, UNet3DConfig
+from ..models.unet_motion import UNetMotionConfig, UNetMotionModel
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..schedulers.ddpm import SchedulerConfig
 from .torch_names import flax_tensor_to_torch, flax_to_torch_key
@@ -127,13 +134,29 @@ def read_state_dict(model_dir: str) -> Dict[str, torch.Tensor]:
     raise FileNotFoundError(f"no model weights found under {model_dir}")
 
 
+def _check_positions(key: str, t: torch.Tensor):
+    """A stored motion-module `pe` (1, L, C) has to be the formula's."""
+    length, dim = t.shape[-2:]
+    expected = sinusoidal_positions(length, dim)
+    got = t.reshape(length, dim).float()
+    tol = 1e-5 if t.dtype in (torch.float32, torch.float64) else 1e-2
+    if not torch.allclose(got, expected, rtol=0.0, atol=tol):
+        raise ValueError(f"{key}: the stored positions differ from the "
+                         f"sinusoidal formula the model computes (largest "
+                         f"gap {float((got - expected).abs().max()):.3g})")
+
+
 def normalize_state_dict(sd: Mapping[str, torch.Tensor],
                          kind: str) -> Dict[str, torch.Tensor]:
-    """Drop non-parameter buffers (transformers' position_ids) and rename
+    """Drop non-parameter buffers (transformers' position_ids; a motion
+    module's `pos_embed.pe`, once checked against the formula) and rename
     old diffusers VAE attention keys to the current names."""
     out = {}
     for key, t in sd.items():
         if key.endswith("position_ids"):
+            continue
+        if kind == "unet" and key.endswith(".pos_embed.pe"):
+            _check_positions(key, t)
             continue
         if "." not in key:              # a bare parameter (logit_scale)
             out[key] = t
@@ -231,8 +254,53 @@ def _write_json(obj: dict, path: str):
         json.dump(obj, f, indent=2)
 
 
-def load_unet_config(model_dir: str) -> UNet3DConfig:
+UNET_CLASSES = {"UNet3DConditionModel": (UNet3DConditionModel, UNet3DConfig),
+                "UNetMotionModel": (UNetMotionModel, UNetMotionConfig)}
+
+
+def unet_class_name(model_dir: str) -> str:
+    """The UNet class a model directory's config names (`_class_name`;
+    a config without one is the UNet3D's); any other name raises."""
+    name = _read_json(os.path.join(model_dir, "config.json")).get(
+        "_class_name") or "UNet3DConditionModel"
+    if name not in UNET_CLASSES:
+        raise ValueError(f"{model_dir}: the UNet class {name!r} is not one "
+                         f"the port builds ({', '.join(UNET_CLASSES)})")
+    return name
+
+
+def require_unet3d(unet_dir: str, what: str):
+    """Raise, naming the class, when the UNet under `unet_dir` is not the
+    UNet3D: `what` (training, a mesh, a LoRA) takes only that class.  A
+    directory without a config is left to the loader."""
+    if not os.path.exists(os.path.join(unet_dir, "config.json")):
+        return
+    name = unet_class_name(unet_dir)
+    if name != "UNet3DConditionModel":
+        raise ValueError(f"{what} takes a UNet3DConditionModel; {unet_dir} "
+                         f"holds a {name}, which the port only serves "
+                         f"(t2v-serve-torch, t2v-inference-torch without "
+                         f"--mesh or a LoRA)")
+
+
+def _motion_config(cfg: dict) -> UNetMotionConfig:
+    """diffusers' merged `UNetMotionModel` config; `from_unet2d` copies
+    SD 1.5's head count to `num_attention_heads`, which wins when set."""
+    fields = {f.name for f in dataclasses.fields(UNetMotionConfig)}
+    kwargs = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in cfg.items() if k in fields and v is not None}
+    if cfg.get("num_attention_heads"):
+        kwargs["attention_head_dim"] = cfg["num_attention_heads"]
+    kwargs.setdefault("motion_layers_per_block",
+                      kwargs.get("layers_per_block", 2))
+    return UNetMotionConfig(**kwargs)
+
+
+def load_unet_config(model_dir: str) -> Union[UNet3DConfig,
+                                               UNetMotionConfig]:
     cfg = _read_json(os.path.join(model_dir, "config.json"))
+    if unet_class_name(model_dir) == "UNetMotionModel":
+        return _motion_config(cfg)
     return UNet3DConfig(
         sample_size=cfg.get("sample_size") or 32,
         in_channels=cfg.get("in_channels", 4),
@@ -248,9 +316,12 @@ def load_unet_config(model_dir: str) -> UNet3DConfig:
     )
 
 
-def save_unet_config(config: UNet3DConfig, model_dir: str):
+def save_unet_config(config: Union[UNet3DConfig, UNetMotionConfig],
+                     model_dir: str):
     cfg = dataclasses.asdict(config)
-    cfg["_class_name"] = "UNet3DConditionModel"
+    cfg["_class_name"] = ("UNetMotionModel"
+                          if isinstance(config, UNetMotionConfig)
+                          else "UNet3DConditionModel")
     for k in ("down_block_types", "up_block_types", "block_out_channels"):
         cfg[k] = list(cfg[k])
     _write_json(cfg, os.path.join(model_dir, "config.json"))
@@ -331,15 +402,29 @@ def _load_module(module_cls, config, model_dir: str, kind: str,
         model = module_cls(config, **model_kwargs)
     sd = normalize_state_dict(read_state_dict(model_dir), kind)
     model.load_state_dict(sd, strict=True, assign=True)
+    # buffers no file holds (a motion module's positions) from their formula
+    for module in model.modules():
+        if hasattr(module, "init_buffers"):
+            module.init_buffers()
     return model.to(device=device, dtype=dtype).eval()
 
 
 def load_unet(model_dir: str, device="cuda",
               dtype: Optional[torch.dtype] = None,
-              fused_groupnorm: bool = False) -> UNet3DConditionModel:
-    return _load_module(UNet3DConditionModel, load_unet_config(model_dir),
-                        model_dir, "unet", device, dtype,
-                        fused_groupnorm=fused_groupnorm)
+              fused_groupnorm: bool = False
+              ) -> Union[UNet3DConditionModel, UNetMotionModel]:
+    """The UNet of the class the directory's config names;
+    `fused_groupnorm` (a training option) is the UNet3D's."""
+    module_cls = UNET_CLASSES[unet_class_name(model_dir)][0]
+    kwargs = {}
+    if module_cls is UNet3DConditionModel:
+        kwargs["fused_groupnorm"] = fused_groupnorm
+    elif fused_groupnorm:
+        raise ValueError(f"{model_dir}: fused_groupnorm runs the UNet3D's "
+                         f"GroupNorms; the {module_cls.__name__} has none "
+                         f"fused")
+    return _load_module(module_cls, load_unet_config(model_dir),
+                        model_dir, "unet", device, dtype, **kwargs)
 
 
 def load_vae(model_dir: str, device="cuda",
@@ -412,7 +497,8 @@ def save_pipeline(pipeline_dir: str,
              "_diffusers_version": "0.15.0"}
     if unet is not None:
         save_unet(unet, os.path.join(pipeline_dir, "unet"), dtype)
-        index["unet"] = ["diffusers", "UNet3DConditionModel"]
+        index["unet"] = ["diffusers", unet_class_name(
+            os.path.join(pipeline_dir, "unet"))]
     if vae is not None:
         save_vae(vae, os.path.join(pipeline_dir, "vae"), dtype)
         index["vae"] = ["diffusers", "AutoencoderKL"]
