@@ -26,7 +26,11 @@ all at the full width of the ms-1.7b model (random weights from a seed).
      (LOWVRAM_SHAPE) and the 576x320 step's (2,880 tokens), FLASH_CHECKED:
      fp32 on the `wmma` route, bf16 on both routes (`sm90` by default); K1
      on both routes, its plain version and SDPA's forward timed at the
-     serving shape and every training shape (FLASH_TIMED);
+     serving shape and every training shape (FLASH_TIMED); and AnimateDiff's
+     two long attentions at 512x512x16 (ANIMATEDIFF_K1: head_dim 40 at
+     4,096 tokens, 80 at 1,024, a batch of 2 requests), bf16 on both
+     routes against the fp32 plain result over the whole batch (o to
+     O16_REL_TOL of its RMS), timed the same way;
  3b. K6 (the short-key attention forward, ops/short_attention.py) against
      its plain version and the fp32 plain attention at the serving cell's
      short shape classes at full size (SHORT_C4: ms-1.7b at 256x256x16,
@@ -206,7 +210,8 @@ all at the full width of the ms-1.7b model (random weights from a seed).
 The last two lines are the kernels record and the device record (JSON).
 K1, K2 and K3 run on two routes (ops/flash_attention.py::flash_route):
 `sm90` (csrc/flash_attn_fwd_sm90.cu, csrc/flash_attn_dkv_sm90.cu,
-csrc/flash_attn_dq_sm90.cu) for bf16 / fp16 at head_dim 64, `wmma`
+csrc/flash_attn_dq_sm90.cu) for bf16 / fp16 at head_dim 64 (K1 also at 40
+and 80), `wmma`
 (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) for the rest; K4 and K5
 too (ops/groupnorm.py::gn_route): `sm90` (csrc/groupnorm_silu_sm90.cu)
 where a cluster's shared memory holds the slab, `simt`
@@ -249,10 +254,22 @@ TRAIN_SHAPE = ("train", 16, 1024, 1024, 5, 64)
 HIRES_SHAPE = ("hires", 16, 2880, 2880, 5, 64)
 FLASH_TIMED = ("slice", "serving_b2", "train", "engine", "hybrid", "lowvram",
                "hires")
+# AnimateDiff's long attentions at 512x512x16 (8 heads at every level): a
+# batch of 2 requests x 2 (CFG) x 16 frames, level 0 (64x64 latents) at
+# head_dim 40 and level 1 (32x32) at 80, 5 of each a UNet call.  The fp32
+# plain version of the whole batch does not fit the card: it runs in chunks
+# of ANIMATEDIFF_CHUNK batch entries.
+ANIMATEDIFF_K1 = [
+    ("animatediff_l0", 64, 4096, 4096, 8, 40),
+    ("animatediff_l1", 64, 1024, 1024, 8, 80),
+]
+ANIMATEDIFF_CHUNK = 8
 FP32_TOL = 1e-4         # max |d o| and max |d lse| in fp32
 BF16_TOL = 2e-2         # max |d o| of bf16 against the fp32 plain result
 LSE16_TOL = 1e-3        # max |d lse| of bf16 K1 against the plain lse of the
                         # same bf16 inputs (fp32 sums in another order)
+O16_REL_TOL = 0.1       # max |d o| of bf16 K1 at head_dim 40 / 80 against
+                        # the fp32 plain result, over the RMS of that o
 BWD_FP32_TOL = 1e-4     # max |d grad| of K2/K3 against the plain backward
 BWD_BF16_EXCESS = 1.5   # bf16 kernel error / bf16 plain error, vs fp32
 BWD_BF16_REL = 3e-2     # bf16 kernel max error / max |fp32 reference|
@@ -664,22 +681,10 @@ def check_k1(fa):
             fail(f"K1 disagrees with its plain version at {label}")
         if label not in FLASH_TIMED:
             continue
-        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, scale))
-        wmma_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, scale,
-                                                          route="wmma"))
-        plain_ms = cuda_ms(
+        timed[label] = time_k1(
+            fa, q, k, v, scale,
             lambda: fa.flash_attention_reference(q, k, v, scale))
-        qb, kb, vb = sdpa_inputs(q, k, v)
-        with torch.no_grad():
-            lib_ms = cuda_ms(lambda: torch.nn.functional
-                             .scaled_dot_product_attention(
-                                 qb, kb, vb, scale=scale))
-        bound_ms, bound_by = attention_bound("K1", b, sq, sk, h, d,
-                                             torch.bfloat16)
-        timed[label] = dict(ms=ms, wmma_ms=wmma_ms, plain_ms=plain_ms,
-                            library_ms=lib_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, max_abs_err=e_16,
-                            wmma_max_abs_err=e_16w)
+        timed[label].update(max_abs_err=e_16, wmma_max_abs_err=e_16w)
         if label == "train":
             timed[label]["host_us"] = host_us(
                 lambda: fa.flash_attention_cuda(q, k, v, scale))
@@ -689,11 +694,90 @@ def check_k1(fa):
             print(f"K1 {label} bf16 wrapper host time per call: sm90 "
                   f"{timed[label]['host_us']:.1f} us (three tensor maps "
                   f"encoded), wmma {timed[label]['wmma_host_us']:.1f} us")
-        print(f"K1 {label} bf16: sm90 {ms:.4f} ms, wmma {wmma_ms:.4f} ms "
-              f"(sm90 / wmma = {ms / wmma_ms:.3f}), plain {plain_ms:.4f} "
-              f"ms, SDPA forward {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}; sm90 at {100 * bound_ms / ms:.1f} % of it) "
-              "(CUDA events, median of 10)")
+        print(f"K1 {label} bf16: " + k1_times_line(timed[label]))
+    return timed
+
+
+def time_k1(fa, q, k, v, scale, plain, plain_runs: int = 10) -> dict:
+    """K1 in bf16 on q, k, v: the default (`sm90`) route's time `ms`
+    beside the `wmma` route's, the plain version's (`plain()`, median of
+    `plain_runs`), SDPA's forward and the bound (CUDA events, median of
+    10)."""
+    b, sq, h, d = q.shape
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, scale))
+    wmma_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, scale,
+                                                      route="wmma"))
+    plain_ms = cuda_ms(plain, n=plain_runs)
+    qb, kb, vb = sdpa_inputs(q, k, v)
+    with torch.no_grad():
+        lib_ms = cuda_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(qb, kb, vb,
+                                                       scale=scale))
+    bound_ms, bound_by = attention_bound("K1", b, sq, k.shape[1], h, d,
+                                         torch.bfloat16)
+    return dict(ms=ms, wmma_ms=wmma_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k1_times_line(t: dict) -> str:
+    return (f"sm90 {t['ms']:.4f} ms, wmma {t['wmma_ms']:.4f} ms (sm90 / "
+            f"wmma = {t['ms'] / t['wmma_ms']:.3f}), plain "
+            f"{t['plain_ms']:.4f} ms, SDPA forward {t['library_ms']:.4f} "
+            f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; sm90 at "
+            f"{100 * t['bound_ms'] / t['ms']:.1f} %, wmma at "
+            f"{100 * t['bound_ms'] / t['wmma_ms']:.1f} % of it) (CUDA "
+            "events, median of 10)")
+
+
+def check_k1_animatediff(fa):
+    """Phase 3 at ANIMATEDIFF_K1: returns {label: record} with K1's time on
+    the `sm90` route (`ms`, its default there) beside the `wmma` route's,
+    the plain version's, SDPA's forward and the bound, on the same bf16
+    inputs; both routes' o and the sm90 lse are held against the fp32 plain
+    version of the same inputs over the whole batch, ANIMATEDIFF_CHUNK
+    entries at a time (o to O16_REL_TOL of the plain o's RMS)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    timed = {}
+    for label, b, sq, sk, h, d in ANIMATEDIFF_K1:
+        q, k, v = (torch.randn(b, s, h, d, device="cuda",
+                               generator=g).bfloat16()
+                   for s in (sq, sk, sk))
+        scale = d ** -0.5
+        if fa.flash_route(q, "fwd") != "sm90":
+            fail(f"K1 {label}: head_dim {d} does not take the sm90 route")
+        o, lse = fa.flash_attention_cuda(q, k, v, scale)
+        o_w, _ = fa.flash_attention_cuda(q, k, v, scale, route="wmma")
+        c = ANIMATEDIFF_CHUNK
+        e_o = e_w = e_lse = sq_sum = 0.0
+        for i in range(0, b, c):
+            o_ref, lse_ref = fa.flash_attention_reference(
+                *(t[i:i + c].float() for t in (q, k, v)), scale)
+            e_o = max(e_o, (o[i:i + c].float() - o_ref).abs().max().item())
+            e_w = max(e_w, (o_w[i:i + c].float() - o_ref).abs().max().item())
+            e_lse = max(e_lse, (lse[i:i + c] - lse_ref).abs().max().item())
+            sq_sum += o_ref.pow(2).sum().item()
+        del o_ref, lse_ref, o_w
+        rms = (sq_sum / o.numel()) ** 0.5
+        print(f"K1 {label} ({b}x{sq}x{sk}x{h}x{d}) bf16, all {b} entries: "
+              f"max|do| sm90 {e_o:.3e} wmma {e_w:.3e} (RMS of o {rms:.3e}: "
+              f"{e_o / rms:.4f} / {e_w / rms:.4f} of it, limit "
+              f"{O16_REL_TOL}), sm90 max|dlse|={e_lse:.3e}")
+        if not (e_o <= O16_REL_TOL * rms and e_w <= O16_REL_TOL * rms
+                and e_lse <= LSE16_TOL):
+            fail(f"K1 disagrees with its plain version at {label}")
+
+        def plain():
+            for i in range(0, b, c):
+                fa.flash_attention_reference(q[i:i + c], k[i:i + c],
+                                             v[i:i + c], scale)
+
+        timed[label] = time_k1(fa, q, k, v, scale, plain, plain_runs=3)
+        timed[label].update(max_abs_err=e_o, wmma_max_abs_err=e_w,
+                            o_rms=rms)
+        print(f"K1 {label} bf16: " + k1_times_line(timed[label])
+              + f"; plain in chunks of {c}, median of 3")
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
     return timed
 
 
@@ -3998,6 +4082,7 @@ def main() -> int:
     lap("3")
     # 3. K1 against its plain version
     k1_timed = check_k1(fa)
+    k1_timed.update(check_k1_animatediff(fa))
 
     lap("3b")
     # 3b. K6 against its plain versions at the serving cell's short shapes
@@ -4144,7 +4229,9 @@ def main() -> int:
          "serving_b2_shape": k1_timed["serving_b2"],
          "hires_shape": k1_timed["hires"],
          **{f"{label}_shape": k1_timed[label]
-            for label in ("engine", "hybrid", "lowvram")}},
+            for label in ("engine", "hybrid", "lowvram")},
+         **{f"{label}_shape": k1_timed[label]
+            for label, *_ in ANIMATEDIFF_K1}},
         {"name": "flash_attn_dkv_sm90", "route": "cuda",
          "source": source + "flash_attn_dkv_sm90.cu",
          "replaces": replaces + "154",

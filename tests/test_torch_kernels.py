@@ -1,11 +1,11 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions: K1 (flash-attention forward), K2 / K3 (its backward,
 dK/dV and dQ), K4 / K5 (fused GroupNorm+SiLU forward and backward).  K1,
-K2 and K3 have two routes: `sm90` (TMA + wgmma, bf16 / fp16 at head_dim 64)
-and `wmma` (fp32 and other head dims); the tests below hold each route on
-the shapes it takes.  Every test here needs an NVIDIA GPU (marked `gpu`) and
-skips elsewhere.  The file imports torch only, so it runs on a machine
-without JAX:
+K2 and K3 have two routes: `sm90` (TMA + wgmma, bf16 / fp16 at head_dim 64,
+and K1 also at 40 and 80) and `wmma` (fp32 and other head dims); the tests
+below hold each route on the shapes it takes.  Every test here needs an
+NVIDIA GPU (marked `gpu`) and skips elsewhere.  The file imports torch
+only, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py -q
 
@@ -194,7 +194,27 @@ SM90_SHAPES = [s for s in SHAPES if s[5] == 64 and s[0] != "temporal"] + [
     ("hires_576x320", 16, 2880, 2880, 5, 64),
 ]
 SM90_IDS = [s[0] for s in SM90_SHAPES]
+# K1's sm90 route also takes head_dim 40 and 80 (AnimateDiff's long
+# attentions): ragged Q and KV tiles, a KV length past one tile's multiple,
+# and AnimateDiff's 4,096 tokens
+SM90_FWD_SHAPES = SM90_SHAPES + [
+    (f"d{d}_{label}", b, sq, sk, h, d) for d in (40, 80)
+    for label, b, sq, sk, h in (("130x70", 2, 130, 70, 3),
+                                ("1030x1100", 1, 1030, 1100, 2),
+                                ("4096", 1, 4096, 4096, 2))]
 HALF = [torch.bfloat16, torch.float16]
+# K1's o at head_dim 40 and 80 against the fp32 plain o: max |d o| over the
+# RMS of the plain o.  bf16 rounding of P reads 0.02-0.03 of it at these
+# shapes; one 64- or 128-key tile left out, or columns 64-79 written from
+# the first block's accumulator, read 2-6 times it.
+O16_REL_TOL = 0.1
+
+
+def _o_err_over_rms(o, o_ref):
+    """max |o - o_ref| over the RMS of o_ref, both read in fp32."""
+    o_ref = o_ref.float()
+    err = (o.float() - o_ref).abs().max()
+    return (err / o_ref.pow(2).mean().sqrt()).item()
 
 
 def _route_counts():
@@ -210,23 +230,27 @@ def _launched(before):
 
 
 @pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
-@pytest.mark.parametrize("label,b,sq,sk,h,d", SM90_SHAPES, ids=SM90_IDS)
+@pytest.mark.parametrize("label,b,sq,sk,h,d", SM90_FWD_SHAPES,
+                         ids=[s[0] for s in SM90_FWD_SHAPES])
 def test_sm90_forward_matches_plain(cuda, label, b, sq, sk, h, d, dtype):
-    """K1 on the sm90 route: o within 2e-2 of the fp32 plain result, and
-    the lse (which K2 and K3 read) equal to the plain lse of the same
-    16-bit inputs to fp32 summation order."""
+    """K1 on the sm90 route, at head_dim 40, 64 and 80: o within 2e-2 of
+    the fp32 plain result (at 40 and 80 also within O16_REL_TOL of its
+    RMS), and the lse (which K2 and K3 read) equal to the plain lse of the
+    same 16-bit inputs to fp32 summation order."""
     q, k, v = _qkv(cuda, b, sq, sk, h, d)
     scale = d ** -0.5
     o_ref, _ = fa.flash_attention_reference(q, k, v, scale)
     q16, k16, v16 = (t.to(dtype) for t in (q, k, v))
     _, lse16_ref = fa.flash_attention_reference(q16, k16, v16, scale)
-    assert fa.flash_route(q16) == "sm90"
+    assert fa.flash_route(q16, "fwd") == "sm90"
     before = _route_counts()
     o, lse = fa.flash_attention_cuda(q16, k16, v16, scale)
     torch.cuda.synchronize()
     assert _launched(before) == {"fwd_sm90": 1}
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert (o.float() - o_ref).abs().max().item() < 2e-2
+    if d != 64:
+        assert _o_err_over_rms(o, o_ref) <= O16_REL_TOL
     assert (lse - lse16_ref).abs().max().item() <= 1e-3
 
 
@@ -293,7 +317,9 @@ def test_sm90_reads_strided_bshd(cuda):
     the tensor maps read them through their strides."""
     qkv = torch.randn(2, 300, 3, 4, 64, device="cuda", generator=cuda)
     q, k, v = qkv.bfloat16().unbind(2)
-    assert not q.is_contiguous() and fa.flash_route(q) == "sm90"
+    assert not q.is_contiguous()
+    assert {fa.flash_route(q, kernel)
+            for kernel in fa.SM90_HEAD_DIMS} == {"sm90"}
     o, lse = fa.flash_attention_cuda(q, k, v, 0.125)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, 0.125)
     assert (o.float() - o_ref.float()).abs().max().item() < 2e-2
@@ -320,16 +346,21 @@ def test_sm90_reads_strided_bshd(cuda):
 
 
 def test_route_rule_counts_each_route(cuda):
-    """bf16 / fp16 at head_dim 64 take sm90; fp32 and head_dim 40 take
-    wmma, for K1, K2 and K3 alike; `route="wmma"` forces the first design on
-    a 16-bit call; the totals, and the counts by batch, count every
-    launch."""
+    """Each kernel's rule: bf16 / fp16 at head_dim 64 take sm90 for K1, K2
+    and K3; head_dim 40 and 80 take sm90 for K1 and wmma for K2 and K3;
+    fp32 takes wmma; `route="wmma"` forces the first design on a 16-bit
+    call; the totals and the counts by batch count every launch."""
     totals = ("launch_count", "dkv_launch_count", "dq_launch_count")
-    cases = [(torch.bfloat16, 64, "sm90"), (torch.float16, 64, "sm90"),
-             (torch.float32, 64, "wmma"), (torch.bfloat16, 40, "wmma")]
-    for dtype, d, route in cases:
+    cases = [(torch.bfloat16, 64, "sm90", "sm90"),
+             (torch.float16, 64, "sm90", "sm90"),
+             (torch.float32, 64, "wmma", "wmma"),
+             (torch.bfloat16, 40, "sm90", "wmma"),
+             (torch.float16, 80, "sm90", "wmma")]
+    for dtype, d, fwd_route, bwd_route in cases:
         q, k, v = (t.to(dtype) for t in _qkv(cuda, 2, 130, 70, 2, d))
-        assert fa.flash_route(q) == route
+        routes = {"fwd": fwd_route, "dkv": bwd_route, "dq": bwd_route}
+        assert {kernel: fa.flash_route(q, kernel)
+                for kernel in fa.SM90_HEAD_DIMS} == routes
         o, lse = fa.flash_attention_reference(q, k, v, d ** -0.5)
         delta = fa.attention_delta(o, o)
         before = _route_counts()
@@ -338,9 +369,8 @@ def test_route_rule_counts_each_route(cuda):
         fa.flash_attention_cuda(q, k, v, d ** -0.5)
         fa.flash_attention_bwd_dkv_cuda(q, k, v, o, lse, delta, d ** -0.5)
         fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, delta, d ** -0.5)
-        assert _launched(before) == {f"{k}_{route}": 1
-                                     for k in ("fwd", "dkv", "dq")}, \
-            (dtype, d)
+        assert _launched(before) == {f"{k}_{r}": 1
+                                     for k, r in routes.items()}, (dtype, d)
         assert [getattr(fa, c) - n
                 for c, n in zip(totals, before_totals)] == [1, 1, 1]
         assert fa.batch_launch_counts == {("fwd", 2): 1, ("dkv", 2): 1,
@@ -365,6 +395,63 @@ def test_route_rule_counts_each_route(cuda):
     with pytest.raises(ValueError, match="sm90 route takes"):
         fa.flash_attention_bwd_dkv_cuda(*(t.float() for t in args[:4]),
                                         *args[4:], route="sm90")
+    # K2 / K3 at head_dim 40, K1 at 96: sm90 refused, nothing launched
+    q40 = q[..., :40].contiguous()
+    o40, lse40 = fa.flash_attention_reference(q40, q40, q40, 0.125)
+    args40 = (q40, q40, q40, o40, lse40, fa.attention_delta(o40, o40), 0.125)
+    q96 = torch.cat([q, q[..., :32]], -1)
+    before = _route_counts()
+    for call in (lambda: fa.flash_attention_bwd_dkv_cuda(*args40,
+                                                         route="sm90"),
+                 lambda: fa.flash_attention_bwd_dq_cuda(*args40,
+                                                        route="sm90"),
+                 lambda: fa.flash_attention_cuda(q96, q96, q96, 0.125,
+                                                 route="sm90")):
+        with pytest.raises(ValueError, match="sm90 route takes"):
+            call()
+    assert _launched(before) == {}
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_sm90_forward_reads_a_fused_projection(cuda, d):
+    """bf16 q, k, v split from one fused (B, S, 3 * H * D) projection, as a
+    qkv Linear gives them: none is contiguous, and K1's sm90 route reads
+    them through their strides at head_dim 40 and 80 (o within
+    O16_REL_TOL of the plain o's RMS)."""
+    b, s, h = 2, 1030, 8
+    qkv = torch.randn(b, s, 3 * h * d, device="cuda",
+                      generator=cuda).bfloat16()
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1))
+    assert not any(t.is_contiguous() for t in (q, k, v))
+    assert q.stride() == (s * 3 * h * d, 3 * h * d, d, 1)
+    before = _route_counts()
+    o, lse = fa.flash_attention_cuda(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"fwd_sm90": 1}
+    o_ref, lse_ref = fa.flash_attention_reference(
+        *(t.float() for t in (q, k, v)), d ** -0.5)
+    assert _o_err_over_rms(o, o_ref) <= O16_REL_TOL
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_sm90_forward_with_wmma_backward_under_autograd(cuda):
+    """flash_attention's autograd path at head_dim 40 in bf16: K1 on sm90,
+    K2 and K3 on wmma with the lse K1 wrote, against autograd through the
+    plain attention in fp32."""
+    from text_to_video_finetuning_tpu_torch.ops.attention import (
+        plain_attention)
+
+    q, k, v = (t.bfloat16().requires_grad_()
+               for t in _qkv(cuda, 2, 1030, 1100, 4, 40))
+    before = _route_counts()
+    torch.sin(fa.flash_attention(q, k, v).float()).sum().backward()
+    assert _launched(before) == {"fwd_sm90": 1, "dkv_wmma": 1, "dq_wmma": 1}
+    ours = [t.grad.float() for t in (q, k, v)]
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    torch.sin(plain_attention(qf, kf, vf, 40 ** -0.5)).sum().backward()
+    for got, t in zip(ours, (qf, kf, vf)):
+        assert (got - t.grad).abs().max().item() <= \
+            3e-2 * max(1.0, t.grad.abs().max().item())
 
 
 def test_sm90_refuses_unaligned_strides(cuda):

@@ -170,21 +170,34 @@ def test_cuda_wrapper_raises_on_cpu_tensor():
     assert fa.launch_count == before
 
 
-@pytest.mark.parametrize("dtype,d,route", [
-    (torch.bfloat16, 64, "sm90"), (torch.float16, 64, "sm90"),
-    (torch.float32, 64, "wmma"), (torch.bfloat16, 40, "wmma"),
-    (torch.float16, 128, "wmma")], ids=["bf16", "fp16", "fp32", "bf16_d40",
-                                        "fp16_d128"])
-def test_flash_route_depends_on_dtype_and_head_dim(dtype, d, route):
+# (dtype, head_dim, K1's route, K2 and K3's route)
+@pytest.mark.parametrize("dtype,d,fwd_route,bwd_route", [
+    (torch.bfloat16, 64, "sm90", "sm90"), (torch.float16, 64, "sm90", "sm90"),
+    (torch.float32, 64, "wmma", "wmma"), (torch.bfloat16, 40, "sm90", "wmma"),
+    (torch.float16, 128, "wmma", "wmma"), (torch.bfloat16, 80, "sm90", "wmma"),
+    (torch.bfloat16, 96, "wmma", "wmma"), (torch.float32, 40, "wmma", "wmma")],
+    ids=["bf16", "fp16", "fp32", "bf16_d40", "fp16_d128", "bf16_d80",
+         "bf16_d96", "fp32_d40"])
+def test_flash_route_depends_on_dtype_and_head_dim(dtype, d, fwd_route,
+                                                   bwd_route):
+    """Each kernel's route: K1 takes `sm90` for bf16 / fp16 at head_dim 40,
+    64 and 80, K2 and K3 at 64 only; fp32 and every other head_dim take
+    `wmma`.  An explicit `sm90` the inputs do not take raises."""
     q = torch.zeros(2, 16, 3, d, dtype=dtype)
-    assert fa.flash_route(q) == route
-    assert fa._pick_route(None, q) == route
-    assert fa._pick_route("wmma", q) == "wmma"
-    if route == "wmma":
-        with pytest.raises(ValueError, match="sm90 route takes"):
-            fa._pick_route("sm90", q)
-    with pytest.raises(ValueError, match="not in"):
-        fa._pick_route("cudnn", q)
+    for kernel, route in (("fwd", fwd_route), ("dkv", bwd_route),
+                          ("dq", bwd_route)):
+        assert fa.flash_route(q, kernel) == route, kernel
+        assert fa._pick_route(None, q, kernel) == route
+        assert fa._pick_route("wmma", q, kernel) == "wmma"
+        if route == "wmma":
+            with pytest.raises(ValueError, match="sm90 route takes"):
+                fa._pick_route("sm90", q, kernel)
+        else:
+            assert fa._pick_route("sm90", q, kernel) == "sm90"
+        with pytest.raises(ValueError, match="not in"):
+            fa._pick_route("cudnn", q, kernel)
+    with pytest.raises(ValueError, match="kernel"):
+        fa.flash_route(q, "bwd")
 
 
 _WRAPPERS = {
@@ -206,14 +219,37 @@ _WRAPPERS = {
 def test_wrappers_refuse_a_route_the_inputs_do_not_take(kernel, dtype, d,
                                                         route, match):
     """K1, K2 and K3 pick their route from the inputs before anything else:
-    an unknown route, or `sm90` for fp32 or head_dim 40, raises ValueError
-    (here on CPU tensors, before the device check) and launches nothing."""
+    an unknown route, or `sm90` for fp32 or a head_dim the kernel's sm90
+    route does not take (40 for K2 and K3; K1 takes 40, so its case asks at
+    96), raises ValueError (here on CPU tensors, before the device check)
+    and launches nothing."""
+    if kernel == "fwd" and d == 40:
+        d = 96
     q = torch.zeros(1, 8, 1, d, dtype=dtype)
     counts = ("launch_count", "dkv_launch_count", "dq_launch_count")
     before = [getattr(fa, c) for c in counts]
     with pytest.raises(ValueError, match=match):
         _WRAPPERS[kernel](q, route)
     assert [getattr(fa, c) for c in counts] == before
+
+
+def test_count_fills_route_and_batch_counters(monkeypatch):
+    """Each launch the wrappers count goes into its kernel's total, its
+    (kernel, route) counter and its (kernel, batch) count."""
+    for name in ("launch_count", "dkv_launch_count", "fwd_sm90_launch_count",
+                 "fwd_wmma_launch_count", "dkv_wmma_launch_count"):
+        monkeypatch.setattr(fa, name, 0)
+    monkeypatch.setattr(fa, "batch_launch_counts", {})
+    fa._count("fwd", "sm90", 64)
+    fa._count("fwd", "sm90", 64)
+    fa._count("fwd", "sm90", 64)
+    fa._count("fwd", "wmma", 2)
+    fa._count("dkv", "wmma", 64)
+    assert (fa.launch_count, fa.fwd_sm90_launch_count,
+            fa.fwd_wmma_launch_count, fa.dkv_launch_count,
+            fa.dkv_wmma_launch_count) == (4, 3, 1, 1, 1)
+    assert fa.batch_launch_counts == {("fwd", 64): 3, ("fwd", 2): 1,
+                                      ("dkv", 64): 1}
 
 
 def test_sm90_stride_check():

@@ -263,16 +263,16 @@ extern "C" int t2v_flash_attn_dkv_sm90(int dtype, const void* q, const void* k,
   const long long* st = in_strides;
   Params p{};
   int err = make_bshd_map(&p.q, dtype, q, B, Sq, H, st[0], st[1], st[2],
-                          kBlockN);
+                          kHeadDim, kBlockN);
   if (err == 0)
     err = make_bshd_map(&p.k, dtype, k, B, Sk, H, st[3], st[4], st[5],
-                        kBlockM);
+                        kHeadDim, kBlockM);
   if (err == 0)
     err = make_bshd_map(&p.v, dtype, v, B, Sk, H, st[6], st[7], st[8],
-                        kBlockM);
+                        kHeadDim, kBlockM);
   if (err == 0)
     err = make_bshd_map(&p.dout, dtype, dout, B, Sq, H, st[9], st[10],
-                        st[11], kBlockN);
+                        st[11], kHeadDim, kBlockN);
   if (err != 0) return err;
   p.lse = lse;
   p.delta = delta;

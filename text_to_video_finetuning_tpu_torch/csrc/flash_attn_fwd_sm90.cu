@@ -1,6 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a) at head_dim 64, bf16 / fp16:
-// TMA-fed K/V ring, wgmma, softmax and accumulators in registers.  Bound
-// through a plain C entry point and loaded with ctypes
+// Flash-attention forward for Hopper (sm_90a) at head_dim 40, 64 and 80,
+// bf16 / fp16: TMA-fed K/V ring, wgmma, softmax and accumulators in
+// registers.  Bound through a plain C entry point and loaded with ctypes
 // (ops/kernel_build.py builds every csrc/*.cu with nvcc).
 //
 // Replaces: text_to_video_finetuning_tpu/ops/flash_attention.py::_fwd_kernel
@@ -34,6 +34,20 @@
 //   for the whole KV loop;
 // * the epilogue divides by the row sum, writes o through its strides and
 //   the lse = m + log(l) of rows < Sq.
+// Head_dim is a template parameter (AnimateDiff's SD 1.5 UNet has 8 heads
+// at every level: head_dim 40 at 4,096 tokens, 80 at 1,024).  A row is
+// read as ceil(D / 64) column blocks of 64, each its own 128-byte-swizzled
+// tile loaded by one TMA box, which zero-fills the columns past D.  S takes
+// ceil(D / 16) k-slices (3 at 40, the zero columns 40..47 adding nothing; 5
+// at 80, the fifth on the second block); O is one m64n64 accumulator per
+// block (columns past D come out zero and are not written).  What bounds
+// it at head_dim 40: a score costs 4 * 40 = 160 FLOP of products (S runs
+// 48 deep and P.V 64 wide, so the tensor cores do 224), against the same
+// softmax per score as at 64 (the exp2, the FMA, the max and sum
+// reductions, the P packing), and nothing overlaps the softmax with the
+// wgmmas.  So the softmax, not the 160 FLOP, sets its time, and its share
+// of the roofline falls below head_dim 64's: 25 % at AnimateDiff's level 0
+// and 33 % at 80, against 30-37 % at 64 (PERF.md's kernel table).
 // Ragged edges: TMA zero-fills K/V rows >= Sk, whose scores would be 0, so
 // those columns are set to -inf; query rows >= Sq are zero-filled and never
 // written.  q, k, v are read BSHD through 4-D tensor maps over their
@@ -47,18 +61,29 @@ using namespace t2v_sm90;
 
 constexpr int kBlockN = 128;  // KV rows per ring stage
 constexpr int kStages = 2;
-constexpr int kQBytes = kBlockM * kRowBytes;   // 16 KB
-constexpr int kKvBytes = kBlockN * kRowBytes;  // 16 KB each for K and V
+constexpr int kQBytes = kBlockM * kRowBytes;   // 16 KB a column block
+constexpr int kKvBytes = kBlockN * kRowBytes;  // 16 KB a block of K or V
 
+// 64-column blocks of a head_dim-D row
+template <int D>
+constexpr int kBlocks = (D + kBoxCols - 1) / kBoxCols;
+
+// the columns of block C that hold head_dim (a multiple of 8)
+template <int D, int C>
+constexpr int kBlockCols =
+    D - C * kBoxCols < kBoxCols ? D - C * kBoxCols : kBoxCols;
+
+template <int D>
 struct Smem {
-  uint8_t q[kQBytes];
-  uint8_t k[kStages][kKvBytes];
-  uint8_t v[kStages][kKvBytes];
+  uint8_t q[kBlocks<D>][kQBytes];
+  uint8_t k[kStages][kBlocks<D>][kKvBytes];
+  uint8_t v[kStages][kBlocks<D>][kKvBytes];
   uint64_t q_full;
   uint64_t full[kStages];
   uint64_t empty[kStages];
 };
-constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
+template <int D>
+constexpr size_t kSmemBytes = sizeof(Smem<D>) + 1024;  // + alignment slack
 
 struct Params {
   CUtensorMap q, k, v;
@@ -69,11 +94,13 @@ struct Params {
   float scale_log2;  // scale * log2(e)
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
+  static_assert(D % 8 == 0 && kBlocks<D> <= 2, "head_dim 8, 16, .. 128");
+  constexpr int kNB = kBlocks<D>;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(align1024(smem_raw));
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(align1024(smem_raw));
 
   const int qtile = blockIdx.x % p.n_qtiles;
   const int bh = blockIdx.x / p.n_qtiles;
@@ -94,15 +121,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (tid >= kConsumerThreads) {  // the producer warp: one thread issues TMA
     if (tid == kConsumerThreads) {
-      mbar_expect_tx(&sm.q_full, kQBytes);
-      tma_load_rows(sm.q, &p.q, &sm.q_full, h, q0, b);
+      mbar_expect_tx(&sm.q_full, kNB * kQBytes);
+#pragma unroll
+      for (int c = 0; c < kNB; ++c)
+        tma_load_rows(sm.q[c], &p.q, &sm.q_full, h, q0, b, c * kBoxCols);
       for (int t = 0; t < n_kv; ++t) {
         const int s = t % kStages;
         // the stage's previous tile (t - kStages) must be released first
         if (t >= kStages) mbar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(&sm.full[s], 2 * kKvBytes);
-        tma_load_rows(sm.k[s], &p.k, &sm.full[s], h, t * kBlockN, b);
-        tma_load_rows(sm.v[s], &p.v, &sm.full[s], h, t * kBlockN, b);
+        mbar_expect_tx(&sm.full[s], 2 * kNB * kKvBytes);
+#pragma unroll
+        for (int c = 0; c < kNB; ++c) {
+          tma_load_rows(sm.k[s][c], &p.k, &sm.full[s], h, t * kBlockN, b,
+                        c * kBoxCols);
+          tma_load_rows(sm.v[s][c], &p.v, &sm.full[s], h, t * kBlockN, b,
+                        c * kBoxCols);
+        }
       }
     }
     return;
@@ -116,26 +150,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int cq = 2 * (lane % 4);
   const float sl2 = p.scale_log2;
 
-  float o[32];
+  float o[kNB][32];  // one m64n64 accumulator per column block
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  for (int c = 0; c < kNB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.0f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of score * sl2
   float l0 = 0.0f, l1 = 0.0f;            // this thread's partial row sums
-  const uint64_t desc_q = kmajor_desc(sm.q + wg * kWgRows * kRowBytes);
+  uint64_t desc_q[kNB];
+#pragma unroll
+  for (int c = 0; c < kNB; ++c)
+    desc_q[c] = kmajor_desc(sm.q[c] + wg * kWgRows * kRowBytes);
 
   mbar_wait(&sm.q_full, 0);
   for (int t = 0; t < n_kv; ++t) {
     const int s = t % kStages;
     mbar_wait(&sm.full[s], (t / kStages) & 1);
 
-    // S = Q . K^T (64 x 128 per warpgroup), fp32 in registers
+    // S = Q . K^T (64 x 128 per warpgroup), fp32 in registers: k-slice kk
+    // is slice kk % 4 of column block kk / 4
     float sc[64];
-    const uint64_t desc_k = kmajor_desc(sm.k[s]);
+    uint64_t desc_k[kNB];
+#pragma unroll
+    for (int c = 0; c < kNB; ++c) desc_k[c] = kmajor_desc(sm.k[s][c]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk)
-      wgmma_ss_n128<T>(sc, desc_q + kk * kDescKStep, desc_k + kk * kDescKStep,
-                       kk > 0);
+    for (int kk = 0; kk < (D + 15) / 16; ++kk)
+      wgmma_ss_n128<T>(sc, desc_q[kk / 4] + (kk % 4) * kDescKStep,
+                       desc_k[kk / 4] + (kk % 4) * kDescKStep, kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -178,25 +220,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     l0 = l0 * c0 + s0;
     l1 = l1 * c1 + s1;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      o[4 * i + 0] *= c0;
-      o[4 * i + 1] *= c0;
-      o[4 * i + 2] *= c1;
-      o[4 * i + 3] *= c1;
-    }
+    for (int c = 0; c < kNB; ++c)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o[c][4 * i + 0] *= c0;
+        o[c][4 * i + 1] *= c0;
+        o[c][4 * i + 2] *= c1;
+        o[c][4 * i + 3] *= c1;
+      }
 
-    // O += P . V with P in registers (V MN-major)
+    // O += P . V with P in registers (V MN-major), one chain per block
     uint32_t pa[8][4];
     to_a_fragments<T, 64>(sc, pa);
-    const uint64_t desc_v = mnmajor_desc(sm.v[s]);
-    fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < kNB; ++c) fence_regs(o[c]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk)
-      wgmma_rs_n64_t<T>(o, pa[kk], desc_v + kk * kDescRowStep, 1);
+    for (int c = 0; c < kNB; ++c) {
+      const uint64_t desc_v = mnmajor_desc(sm.v[s][c]);
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        wgmma_rs_n64_t<T>(o[c], pa[kk], desc_v + kk * kDescRowStep, 1);
+    }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < kNB; ++c) fence_regs(o[c]);
     fence_regs(pa);
     mbar_arrive(&sm.empty[s]);  // this thread is done with the stage
   }
@@ -208,7 +257,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const int row0 = q0 + wg * kWgRows + r;
   T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  store_rows<T>(og, p.o_ss, row0, p.Sq, cq, o, 1.0f / l0, 1.0f / l1);
+  store_rows<T, kBlockCols<D, 0>>(og, p.o_ss, row0, p.Sq, cq, o[0],
+                                  1.0f / l0, 1.0f / l1);
+  if constexpr (kNB > 1)
+    store_rows<T, kBlockCols<D, 1>>(og, p.o_ss, row0, p.Sq, kBoxCols + cq,
+                                    o[1], 1.0f / l0, 1.0f / l1);
   if (lane % 4 == 0) {
     float* lse = p.lse + static_cast<long long>(bh) * p.Sq;
     if (row0 < p.Sq) lse[row0] = (m0 + log2f(l0)) * kLn2;
@@ -216,25 +269,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      flash_fwd_sm90_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes<D>));
   if (err != cudaSuccess) return err;
   const long long n_ctas = static_cast<long long>(p.n_qtiles) * B * p.H;
   if (n_ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_fwd_sm90_kernel<T>
-      <<<static_cast<unsigned>(n_ctas), kThreads, kSmemBytes, stream>>>(p);
+  flash_fwd_sm90_kernel<T, D>
+      <<<static_cast<unsigned>(n_ctas), kThreads, kSmemBytes<D>, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dtype(int dtype, const Params& p, int B,
+                         cudaStream_t stream) {
+  return dtype == 2 ? launch<__nv_bfloat16, D>(p, B, stream)
+                    : launch<__half, D>(p, B, stream);
 }
 
 }  // namespace
 
-// dtype: 1 = float16, 2 = bfloat16; D must be 64.  Strides are in elements,
-// each a multiple of 8 (16 bytes), the last (head_dim) stride 1; base
-// addresses 16-byte aligned.  Returns 0, a CUDA error code, or one of the
-// negative codes of flash_sm90.cuh (t2v_flash_fwd_sm90_error_string).
+// dtype: 1 = float16, 2 = bfloat16; D is 40, 64 or 80.  Strides are in
+// elements, each a multiple of 8 (16 bytes), the last (head_dim) stride 1;
+// base addresses 16-byte aligned.  Returns 0, a CUDA error code, or one of
+// the negative codes of flash_sm90.cuh (t2v_flash_fwd_sm90_error_string).
 extern "C" int t2v_flash_attn_fwd_sm90(
     int dtype, const void* q, const void* k, const void* v, void* o,
     float* lse, int B, int H, int Sq, int Sk, int D, long long q_sb,
@@ -242,15 +302,18 @@ extern "C" int t2v_flash_attn_fwd_sm90(
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, float scale,
     void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D != kHeadDim ||
-      (dtype != 1 && dtype != 2))
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 ||
+      (D != 40 && D != 64 && D != 80) || (dtype != 1 && dtype != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
-  int err = make_bshd_map(&p.q, dtype, q, B, Sq, H, q_sb, q_ss, q_sh, kBlockM);
+  int err =
+      make_bshd_map(&p.q, dtype, q, B, Sq, H, q_sb, q_ss, q_sh, D, kBlockM);
   if (err == 0)
-    err = make_bshd_map(&p.k, dtype, k, B, Sk, H, k_sb, k_ss, k_sh, kBlockN);
+    err = make_bshd_map(&p.k, dtype, k, B, Sk, H, k_sb, k_ss, k_sh, D,
+                        kBlockN);
   if (err == 0)
-    err = make_bshd_map(&p.v, dtype, v, B, Sk, H, v_sb, v_ss, v_sh, kBlockN);
+    err = make_bshd_map(&p.v, dtype, v, B, Sk, H, v_sb, v_ss, v_sh, D,
+                        kBlockN);
   if (err != 0) return err;
   p.o = o;
   p.lse = lse;
@@ -263,8 +326,10 @@ extern "C" int t2v_flash_attn_fwd_sm90(
   p.n_qtiles = (Sq + kBlockM - 1) / kBlockM;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == 2 ? launch<__nv_bfloat16>(p, B, s)
-                                     : launch<__half>(p, B, s));
+  const cudaError_t launched = D == 40   ? launch_dtype<40>(dtype, p, B, s)
+                               : D == 80 ? launch_dtype<80>(dtype, p, B, s)
+                                         : launch_dtype<64>(dtype, p, B, s);
+  return static_cast<int>(launched);
 }
 
 extern "C" const char* t2v_flash_fwd_sm90_error_string(int err) {

@@ -8,13 +8,16 @@
 // query rows in K1 and K3, KV rows in K2: two consumer warpgroups of 64 rows
 // each issue the wgmma products and keep their softmax state and
 // accumulators in registers; one producer warp issues the TMA loads.
-// Head_dim is 64, so one bf16/fp16 row is 128 bytes: exactly the TMA box
-// width and the 128-byte swizzle atom that wgmma reads, and an 8-row group
-// is 1024 bytes.  Every tile is 1024-byte aligned in shared
-// memory so that the swizzle TMA writes is the one wgmma's descriptor names.
+// A tile holds 64 columns of head_dim: one bf16/fp16 row is 128 bytes,
+// exactly the TMA box width and the 128-byte swizzle atom that wgmma reads,
+// and an 8-row group is 1024 bytes.  K2 and K3 run at head_dim 64, one such
+// column block; K1 also at 40 (one block, columns 40..63 zero-filled by
+// TMA) and 80 (two blocks, the second zero past column 16).  Every tile is
+// 1024-byte aligned in shared memory so that the swizzle TMA writes is the
+// one wgmma's descriptor names.
 //
 // Operands in shared memory (all 128-byte swizzled, rows of 128 bytes):
-// * K-major (the reduction runs along the 64 head_dim elements of a row):
+// * K-major (the reduction runs along the head_dim elements of a row):
 //   Q and dO as A, K and V as B of S = Q.K^T and dP = dO.V^T (K1, K3); K
 //   and V as A, Q and dO as B of the transposed S^T = K.Q^T and dP^T =
 //   V.dO^T (K2).  The k-th 16-element slice starts 32 bytes further into
@@ -23,8 +26,9 @@
 //   of dQ += dS.K, dO and Q as B of dV += P^T.dO and dK += dS^T.Q, with the
 //   transpose flag.  The k-th 16-row slice starts 16 rows (2048 bytes)
 //   further down.
-// The descriptor's stride offset is 1024 bytes (the next 8-row group); at
-// head_dim 64 no operand spans a second 128-byte column of atoms.
+// The descriptor's stride offset is 1024 bytes (the next 8-row group); no
+// operand spans a second 128-byte column of atoms: a second column block is
+// a tile of its own, with descriptors of its own.
 //
 // Registers.  The fp32 accumulator of an m64nN wgmma gives thread t of the
 // warpgroup, for each 8-column slice i, the values d[4i + 0..1] at row
@@ -45,8 +49,9 @@
 
 namespace t2v_sm90 {
 
-constexpr int kHeadDim = 64;
-constexpr int kRowBytes = kHeadDim * 2;  // bf16 / fp16
+constexpr int kHeadDim = 64;  // K2 and K3's head_dim
+constexpr int kBoxCols = 64;  // head_dim columns of a TMA box and a tile
+constexpr int kRowBytes = kBoxCols * 2;  // bf16 / fp16
 constexpr int kWgRows = 64;  // rows of one warpgroup on the CTA's own axis
 constexpr int kConsumerWarpgroups = 2;
 constexpr int kConsumerThreads = 128 * kConsumerWarpgroups;
@@ -93,22 +98,24 @@ inline EncodeFn encoder() {
   return fn;
 }
 
-// A 4-D map over a BSHD tensor read through its strides (elements): dims
-// (D, H, S, B) innermost first, a box of `rows` sequence rows of one (batch,
-// head), 128-byte swizzle.  Rows past S read as zeros.
+// A 4-D map over a BSHD tensor of head_dim `dim` read through its strides
+// (elements): dims (D, H, S, B) innermost first, a box of `rows` sequence
+// rows by kBoxCols columns of one (batch, head), 128-byte swizzle.  Rows
+// past S and columns past D read as zeros; a load completes the whole
+// box's bytes on its mbarrier, zeros included.
 inline int make_bshd_map(CUtensorMap* map, int dtype, const void* ptr, int B,
                          int S, int H, long long sb, long long ss,
-                         long long sh, int rows) {
+                         long long sh, int dim, int rows) {
   const EncodeFn encode = encoder();
   if (encode == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dim),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kHeadDim), 1,
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBoxCols), 1,
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
@@ -179,15 +186,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (clock64() - start > (1LL << 34)) __trap();
 }
 
-// TMA: `rows` x 64 elements of (batch, head) starting at sequence row `row`
-// into `dst`, completing `bytes` on `bar`.
+// TMA: the map's box of (batch, head) at sequence row `row` and head_dim
+// column `col` into `dst`, completing its bytes on `bar`.
 __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int head,
-                                              int row, int batch) {
+                                              int row, int batch,
+                                              int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col),
       "r"(head), "r"(row), "r"(batch)
       : "memory");
 }
@@ -375,14 +383,16 @@ __device__ __forceinline__ void to_a_fragments(const float (&acc)[N],
   }
 }
 
-// Store this thread's rows of an m64n64 fp32 accumulator times `mul0` /
-// `mul1` (its upper and lower row) as T, through the output's sequence
-// stride; rows >= n are not written.
-template <typename T>
+// Store this thread's rows of the first kCols columns (a multiple of 8) of
+// an m64n64 fp32 accumulator times `mul0` / `mul1` (its upper and lower
+// row) as T, through the output's sequence stride; rows >= n are not
+// written.
+template <typename T, int kCols = 64>
 __device__ __forceinline__ void store_rows(T* out, long long row_stride,
                                            int row0, int n, int col,
                                            const float (&acc)[32], float mul0,
                                            float mul1) {
+  static_assert(kCols % 8 == 0 && kCols <= 64, "whole 8-column slices");
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
@@ -390,7 +400,7 @@ __device__ __forceinline__ void store_rows(T* out, long long row_stride,
     const float mul = half ? mul1 : mul0;
     T* dst = out + static_cast<long long>(row) * row_stride + col;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < kCols / 8; ++i)
       *reinterpret_cast<uint32_t*>(dst + 8 * i) = pack2<T>(
           acc[4 * i + 2 * half] * mul, acc[4 * i + 2 * half + 1] * mul);
   }

@@ -12,12 +12,16 @@ CUDA kernels replace the Pallas TPU kernels of
 * K3, dQ (`_bwd_dq_kernel`): `csrc/flash_attn_dq_sm90.cu` on the `sm90`
   route, `csrc/flash_attn_bwd.cu` on the `wmma` route.
 
-`flash_route(q)` picks the route from the inputs alone: `sm90` for bf16 /
-fp16 at head_dim 64 (every attention of the ms-1.7b UNet), `wmma` for fp32
-and every other head_dim.  On the `sm90` route q, k, v (and dO) are read
-through TMA tensor maps, so their base addresses and strides must be 16-byte
-aligned; the wrappers raise `ValueError` on anything else.  The route never
-depends on whether a build or a launch succeeds: a failure raises.
+`flash_route(q, kernel)` picks each kernel's route from the inputs alone:
+`sm90` for bf16 / fp16 at the head_dims its Hopper kernel is built for --
+K1 at 40, 64 and 80 (every attention of the ms-1.7b UNet and AnimateDiff's
+long ones), K2 and K3 at 64 (`SM90_HEAD_DIMS`) -- and `wmma` for fp32 and
+every other head_dim.  So a head_dim-40 attention under autograd runs K1 on
+`sm90` and K2 / K3 on `wmma`, which read the lse K1 wrote in the same (B, H,
+Sq) fp32 layout.  On the `sm90` route q, k, v (and dO) are read through TMA
+tensor maps, so their base addresses and strides must be 16-byte aligned;
+the wrappers raise `ValueError` on anything else.  The route never depends
+on whether a build or a launch succeeds: a failure raises.
 
 `ops/kernel_build.py` compiles the sources with nvcc for sm_90a into shared
 libraries; they are called through plain C entry points with ctypes, on
@@ -56,7 +60,9 @@ import torch
 from . import kernel_build
 
 MAX_HEAD_DIM = 128
-SM90_HEAD_DIM = 64
+# the head_dims each kernel's sm90 route takes: K1 (`fwd`), K2 (`dkv`), K3
+# (`dq`)
+SM90_HEAD_DIMS = {"fwd": (40, 64, 80), "dkv": (64,), "dq": (64,)}
 ROUTES = ("sm90", "wmma")
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -231,24 +237,28 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def flash_route(q: torch.Tensor) -> str:
-    """The kernel route of a K1, K2 or K3 call, from the inputs alone: `sm90`
-    (TMA + wgmma) for bf16 / fp16 at head_dim 64, `wmma` otherwise."""
+def flash_route(q: torch.Tensor, kernel: str) -> str:
+    """The route of a K1 (`fwd`), K2 (`dkv`) or K3 (`dq`) call, from the
+    inputs alone: `sm90` (TMA + wgmma) for bf16 / fp16 at a head_dim of
+    `SM90_HEAD_DIMS[kernel]`, `wmma` otherwise."""
+    if kernel not in SM90_HEAD_DIMS:
+        raise ValueError(f"flash attention kernel {kernel!r} not in "
+                         f"{tuple(SM90_HEAD_DIMS)}")
     if (q.dtype in (torch.bfloat16, torch.float16)
-            and q.shape[-1] == SM90_HEAD_DIM):
+            and q.shape[-1] in SM90_HEAD_DIMS[kernel]):
         return "sm90"
     return "wmma"
 
 
-def _pick_route(route: Optional[str], q: torch.Tensor) -> str:
+def _pick_route(route: Optional[str], q: torch.Tensor, kernel: str) -> str:
     if route is None:
-        return flash_route(q)
+        return flash_route(q, kernel)
     if route not in ROUTES:
         raise ValueError(f"flash attention route {route!r} not in {ROUTES}")
-    if route == "sm90" and flash_route(q) != "sm90":
+    if route == "sm90" and flash_route(q, kernel) != "sm90":
         raise ValueError(f"the sm90 route takes bf16 / fp16 at head_dim "
-                         f"{SM90_HEAD_DIM}, got {q.dtype} head_dim "
-                         f"{q.shape[-1]}")
+                         f"{SM90_HEAD_DIMS[kernel]} for {kernel}, got "
+                         f"{q.dtype} head_dim {q.shape[-1]}")
     return route
 
 
@@ -314,11 +324,11 @@ def _count(kernel: str, route: str, batch: int):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float, route: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1 on `route` (default `flash_route(q)`): returns (o BSHD in
-    q's dtype, lse (B, H, Sq) fp32).  Raises on CPU tensors, unsupported
-    dtypes/shapes, unaligned strides on the sm90 route, a failed build or a
-    refused launch."""
-    route = _pick_route(route, q)
+    """Launch K1 on `route` (default `flash_route(q, "fwd")`): returns (o
+    BSHD in q's dtype, lse (B, H, Sq) fp32).  Raises on CPU tensors,
+    unsupported dtypes/shapes, unaligned strides on the sm90 route, a failed
+    build or a refused launch."""
+    route = _pick_route(route, q, "fwd")
     _check("qkv", q, k, v)
     strides = (_tma_strides("qkv", q, k, v) if route == "sm90"
                else [s for t in (q, k, v) for s in t.stride()[:3]])
@@ -378,9 +388,9 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
                                  scale: float, route: Optional[str] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 on q, k, v, dO (BSHD, one dtype), the forward's lse and
-    delta ((B, H, Sq) fp32), on `route` (default `flash_route(q)`): returns
-    (dk, dv), contiguous BSHD."""
-    route = _pick_route(route, q)
+    delta ((B, H, Sq) fp32), on `route` (default `flash_route(q, "dkv")`):
+    returns (dk, dv), contiguous BSHD."""
+    route = _pick_route(route, q, "dkv")
     _check_bwd(q, k, v, do, lse, delta)
     dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
               for t in (k, v))
@@ -394,8 +404,8 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
                                 scale: float, route: Optional[str] = None
                                 ) -> torch.Tensor:
     """Launch K3 on the same inputs as K2, on `route` (default
-    `flash_route(q)`): returns dq, contiguous BSHD."""
-    route = _pick_route(route, q)
+    `flash_route(q, "dq")`): returns dq, contiguous BSHD."""
+    route = _pick_route(route, q, "dq")
     _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch_bwd("dq", route, q, k, v, do, lse, delta, (dq,), scale)
